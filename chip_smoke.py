@@ -1,0 +1,383 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch + CUDA port (smh_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA device. In phases,
+each printing a line, each failing loudly:
+
+  1. device  — requires torch.cuda.is_available(); prints the versions and
+               the card's name and power limit (nvidia-smi);
+  2. build   — compiles smh_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+  3. kernels — each CUDA kernel against its plain PyTorch version on the
+               card at the main path's shapes (exact), the classify kernel
+               also against the numpy oracle over the whole 256^3 colour
+               cube, with CUDA-event times of kernel and plain version;
+  4. slice   — the port's VisionState on 1080p and 4K frames with a marker
+               line and a "300m" scale: markers, ratio and minimap against
+               the numpy oracle, the on-device scales read, both kernels
+               launched by the main path, and the hostpack bytes against
+               the same backend on the CPU (plain versions);
+  5. timing  — p50 of process() over warm frames at 1080p and 4K;
+  6. loop    — CaptureThread -> VisionLoop delivers an update.
+
+The last lines are a JSON object with the per-kernel results, the card's
+name and power limit, and {"ok": true, "device": {...}}. Any failed check
+raises, so the script exits non-zero and prints no result. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+MARKER = [((120, 150), (700, 520))]  # map-ROI coordinates at 1080p
+CUBE_SIDE = 4096  # 4096 x 4096 = every 8-bit RGB colour once
+N_TIMED = 50
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    require(bool(out), "nvidia-smi printed no card")
+    return out
+
+
+def cuda_ms(fn, n: int = N_TIMED) -> float:
+    """Mean device time of fn() over n calls (CUDA events, after warm-up)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def frame_for(w: int, h: int) -> np.ndarray:
+    """The verify-skill frame at 1080p; its 2x-scaled counterpart at 4K."""
+    from smh_tpu_torch import testing
+
+    k = w // 1920
+    (x0, y0), (x1, y1) = MARKER[0]
+    return testing.make_frame(
+        w, h,
+        marker_lines=[((x0 * k, y0 * k), (x1 * k, y1 * k))],
+        scale_texts=[("300m", (60 * k, 170 * k))],
+        scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
+    )
+
+
+def phase_kernels(dev: torch.device) -> dict:
+    from smh_tpu import consts as C
+    from smh_tpu.vision import pixmath
+    from smh_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(0)
+    results = {}
+
+    # -- kernel 1: the whole colour cube, then the map-ROI shapes ------------
+    v = np.arange(256, dtype=np.uint8)
+    r, g, b = np.meshgrid(v, v, v, indexing="ij")
+    cube = [torch.from_numpy(x.reshape(CUBE_SIDE, CUBE_SIDE).copy()).to(dev) for x in (r, g, b)]
+    mk, lk = K.classify_luma_planes(*cube)
+    mp, lp = K.classify_luma_planes_plain(*cube)
+    require(bool((mk == mp).all()) and bool((lk == lp).all()), "classify kernel != plain on the cube")
+    rgb = np.stack([r, g, b], axis=-1).reshape(CUBE_SIDE, CUBE_SIDE, 3)
+    m_oracle = pixmath.is_any_map_marker_color(rgb)
+    l_oracle = pixmath.luma8(rgb)
+    require(bool((mk.cpu().numpy().astype(bool) == m_oracle).all()), "classify kernel != pixmath marker")
+    require(bool((lk.cpu().numpy() == l_oracle).all()), "classify kernel != pixmath luma")
+    err = 0
+    print(f"kernels: classify_luma exact on the 256^3 cube (kernel == plain == pixmath), "
+          f"{int(m_oracle.sum())} marker colours", flush=True)
+    times = {}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        gm = C.map_geometry(w, h)
+        planes = [torch.from_numpy(rng.integers(0, 256, (gm.map_h, gm.map_w), dtype=np.uint8)).to(dev)
+                  for _ in range(3)]
+        mk, lk = K.classify_luma_planes(*planes)
+        mp, lp = K.classify_luma_planes_plain(*planes)
+        err = max(err, int((mk.int() - mp.int()).abs().max()), int((lk.int() - lp.int()).abs().max()))
+        require(err == 0, f"classify kernel != plain at {gm.map_h}x{gm.map_w}")
+        t_k = cuda_ms(lambda: K.classify_luma_planes(*planes))
+        t_p = cuda_ms(lambda: K.classify_luma_planes_plain(*planes))
+        times[h] = (t_k, t_p)
+        print(f"kernels: classify_luma {gm.map_h}x{gm.map_w} exact; kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms", flush=True)
+    results["classify_luma"] = {
+        "name": "classify_luma", "route": "cuda",
+        "source": "smh_tpu_torch/csrc/classify_luma.cu",
+        "replaces": "smh_tpu/ops/pallas_kernels.py:42",
+        "max_abs_err": err, "ms": times[1080][0], "plain_ms": times[1080][1],
+    }
+
+    # -- kernel 2: the tile-height schedule, a random trial, the map shapes ----
+    th = K.QUIET_TILE_H
+    heights = [int(0.7 * th), th + 3, int(2.4 * th) + 1, 4 * th - 5, int(rng.integers(30, 300))]
+    err = 0
+
+    def planes_for(views):
+        return [torch.from_numpy(np.ascontiguousarray(views[..., c])).to(dev) for c in range(3)]
+
+    def check_rect(views, label):
+        nonlocal err
+        p = planes_for(views)
+        got = K.minimap_rect_planes(*p)
+        want = K.minimap_rect_planes_plain(*p)
+        err = max(err, int((got - want).abs().max()))
+        require(err == 0, f"quiet_walk kernel != plain ({label})")
+        return p, got
+
+    for trial, h in enumerate(heights):
+        w = int(rng.integers(40, 400)) | 1
+        views = rng.integers(0, 256, (3, h, w, 3), dtype=np.uint8)
+        for i in range(3):
+            y0, x0 = h // (4 + 4 * (i % 2)), w // (4 + 4 * (i % 2))
+            box = views[i, y0 : h - y0, x0 : w - x0]
+            if i == 2:  # edgy centre inside a quiet surround: a minimap-like layout
+                quiet = np.full_like(views[i], 90 + trial)
+                quiet[y0 : h - y0, x0 : w - x0] = box
+                views[i] = quiet
+            else:  # quiet box over the centre
+                box[...] = 120 + trial
+        _, got = check_rect(views, f"h={h} w={w}")
+        print(f"kernels: quiet_walk B=3 {h}x{w} exact, rects {got.cpu().tolist()}", flush=True)
+    times = {}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        gm = C.map_geometry(w, h)
+        frame = frame_for(w, h)
+        roi = frame[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w, :3]
+        noisy = roi.copy()
+        cy0, cx0 = gm.map_h // 5, gm.map_w // 5
+        noisy[cy0:-cy0, cx0:-cx0] = rng.integers(0, 256, noisy[cy0:-cy0, cx0:-cx0].shape, dtype=np.uint8)
+        p, got = check_rect(np.stack([roi, noisy]), f"{gm.map_h}x{gm.map_w}")
+        t_k = cuda_ms(lambda: K.minimap_rect_planes(*p))
+        t_p = cuda_ms(lambda: K.minimap_rect_planes_plain(*p))
+        times[h] = (t_k, t_p)
+        print(f"kernels: quiet_walk B=2 {gm.map_h}x{gm.map_w} exact, rects {got.cpu().tolist()}; "
+              f"kernel+tail {t_k:.4f} ms, plain {t_p:.4f} ms", flush=True)
+    results["quiet_walk"] = {
+        "name": "quiet_walk", "route": "cuda",
+        "source": "smh_tpu_torch/csrc/quiet_walk.cu",
+        "replaces": "smh_tpu/ops/pallas_kernels.py:321",
+        "max_abs_err": err, "ms": times[1080][0], "plain_ms": times[1080][1],
+    }
+    return results
+
+
+def new_state(device, hardware: bool = True):
+    from smh_tpu.ocr.smhocr import SmhOcrEngine
+    from smh_tpu.settings import Settings
+    from smh_tpu_torch.vision.pipeline import VisionState
+
+    s = Settings(path=None)
+    s.set("hardware_acceleration", hardware, save=False)
+    return VisionState(settings=s, ocr_engine=SmhOcrEngine(), device=device)
+
+
+def hostpacks_match(a: np.ndarray, b: np.ndarray, layout: dict) -> bool:
+    """Equal bytes, except that scales_rec score lanes may differ by 1 (the
+    f32 template dot sums in another order on the card)."""
+    if a.shape != b.shape:
+        return False
+    diff = np.nonzero(a != b)[0]
+    if diff.size == 0:
+        return True
+    if "scales_rec" not in layout:
+        return False
+    from smh_tpu_torch.ops import scales_device as sd
+
+    off, size = layout["scales_rec"]
+    if diff.min() < off or diff.max() >= off + size:
+        return False
+    ra = a[off : off + size].view(np.int16).astype(np.int32)
+    rb = b[off : off + size].view(np.int16).astype(np.int32)
+    return bool(sd.score_lanes()[ra != rb].all()) and int(np.abs(ra - rb).max()) <= 1
+
+
+def phase_slice(dev: torch.device) -> dict:
+    from smh_tpu.squadex.capture import Frame
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+
+    fonts = testing.fonts_present()
+    print(f"slice: DejaVu fonts {fonts}", flush=True)
+    require(all(fonts.values()), f"DejaVu fonts missing: {fonts}")
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        frame = frame_for(w, h)
+        state = new_state(dev)
+        try:
+            K.reset_launches()
+            res = state.process(Frame(frame, 96))
+            torch.cuda.synchronize()
+            for name, n in K.LAUNCHES.items():
+                launches[name] += n
+            require(all(n > 0 for n in K.LAUNCHES.values()), f"main path skipped a kernel: {K.LAUNCHES}")
+            be = state.delegate.backend
+            require(be.name == "cuda" and be.device.type == "cuda", "the CUDA backend did not run")
+            pack_gpu = be._results["hostpack"].cpu().numpy()
+            spack_gpu = be._results["scalespack"].cpu().numpy()
+            layout = opp.hostpack_layout(
+                be.geom.map_h, be.geom.map_w, with_ocr=True, with_quiet=True,
+                scales_inline=be._dispatch_flags[3], sparse_budget=be._dispatch_flags[4],
+            )
+            stats = dict(be.stats)
+        finally:
+            state.close()
+        require(res is not None, "map gate closed on a frame with the button")
+
+        oracle_state = new_state("cpu", hardware=False)
+        try:
+            ref = oracle_state.process(Frame(frame, 96))
+        finally:
+            oracle_state.close()
+        cpu_state = new_state("cpu")
+        try:
+            cpu_state.process(Frame(frame, 96))
+            pack_cpu = cpu_state.delegate.backend._results["hostpack"].numpy()
+            spack_cpu = cpu_state.delegate.backend._results["scalespack"].numpy()
+        finally:
+            cpu_state.close()
+
+        markers = [(l.p0, l.p1) for l in res.markers]
+        ref_markers = [(l.p0, l.p1) for l in ref.markers]
+        require(len(markers) == len(ref_markers) == 1, f"markers {markers} vs oracle {ref_markers}")
+        for (a0, a1), (b0, b1) in zip(markers, ref_markers):
+            # tests/test_tpu_parity.py:139-140: ray ends agree within 1.5 px
+            require(all(abs(p.x - q.x) <= 1.5 and abs(p.y - q.y) <= 1.5 for p, q in ((a0, b0), (a1, b1))),
+                    f"marker {markers} vs oracle {ref_markers}")
+        k = w // 1920
+        want_ratio = 300.0 / (120 * k - 2)
+        # The drawn bar spans 120k px with end bars, so it measures 120k - 2.
+        # (The oracle's host OCR reads system fonts, which a machine may lack,
+        # so the ratio is held to the frame's geometry instead.)
+        require(res.meters_to_px_ratio is not None and abs(res.meters_to_px_ratio - want_ratio) < 1e-9,
+                f"ratio {res.meters_to_px_ratio} vs {want_ratio}")
+        require(res.minimap_bounds == ref.minimap_bounds, f"minimap {res.minimap_bounds} vs {ref.minimap_bounds}")
+        require(stats["device_scales_frames"] >= 1 and stats["device_scales_fallbacks"] == 0,
+                f"scales not read on the device: {stats}")
+        require(hostpacks_match(pack_gpu, pack_cpu, layout), "hostpack bytes differ from the CPU path")
+        require(bool((spack_gpu == spack_cpu).all()), "scalespack bytes differ from the CPU path")
+        print(f"slice: {w}x{h} markers {markers} (oracle {ref_markers}), ratio {res.meters_to_px_ratio:.6f}, "
+              f"minimap {res.minimap_bounds}, launches {dict(K.LAUNCHES)}, "
+              f"device_scales_frames {stats['device_scales_frames']}, fallbacks "
+              f"{stats['device_scales_fallbacks']}, hostpack {pack_gpu.size} B == CPU path", flush=True)
+    return launches
+
+
+def phase_timing(dev: torch.device, card: str) -> None:
+    from smh_tpu.squadex.capture import Frame
+    from smh_tpu_torch.ops import pipeline as opp
+
+    for w, h in ((1920, 1080), (3840, 2160)):
+        frame = Frame(frame_for(w, h), 96)
+        state = new_state(dev)
+        try:
+            for _ in range(5):
+                state.process(frame)
+            samples = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                res = state.process(frame)
+                samples.append((time.perf_counter() - t0) * 1e3)
+                require(res is not None and len(res.markers) == 1, "warm frame lost its marker")
+            # The fused pass must queue on the stream without waiting for it.
+            be = state.delegate.backend
+            g = be.geom
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                opp.analyze_packed_flat(
+                    be._rois, map_h=g.map_h, map_w=g.map_w, btn_h=g.btn_h, btn_w=g.btn_w,
+                    grayscale=True, scales_inline="device", sparse_budget=be._dispatch_flags[4],
+                    templates=be._templates,
+                )
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+        finally:
+            state.close()
+        print(f"timing: process() {w}x{h} p50 {statistics.median(samples):.3f} ms "
+              f"(min {min(samples):.3f}, max {max(samples):.3f}, 20 warm frames) on {card}; "
+              f"the fused pass queued with no host sync", flush=True)
+
+
+def phase_loop(dev: torch.device) -> None:
+    from smh_tpu.squadex.capture import CaptureThread, StaticSource
+    from smh_tpu_torch.vision.pipeline import VisionLoop
+
+    state = new_state(dev)
+    updates = []
+    cap = CaptureThread(StaticSource(frame_for(1920, 1080), dpi=96)).start()
+    loop = VisionLoop(state, cap, lambda r, d: updates.append(r)).start()
+    try:
+        deadline = time.time() + 120
+        while time.time() < deadline and not any(u is not None for u in updates):
+            time.sleep(0.05)
+    finally:
+        loop.stop()
+        cap.stop()
+    got = next((u for u in updates if u is not None), None)
+    require(got is not None, "VisionLoop delivered no update within 120 s")
+    require(len(got.markers) == 1 and got.meters_to_px_ratio is not None, "loop update incomplete")
+    print(f"loop: VisionLoop update: markers {[(l.p0, l.p1) for l in got.markers]}, "
+          f"ratio {got.meters_to_px_ratio:.6f}", flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("device: torch.cuda.is_available() is False; this smoke needs a CUDA device",
+              file=sys.stderr)
+        return 2
+    dev = torch.device("cuda:0")
+    card = card_line()
+    print(f"device: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; nvidia-smi: {card}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from smh_tpu_torch import _build
+
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"build: {_build.lib_path()} in {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})", flush=True)
+
+    kernels = phase_kernels(dev)
+    launches = phase_slice(dev)
+    phase_timing(dev, card)
+    phase_loop(dev)
+    require("jax" not in sys.modules, "the port imported jax")
+
+    for name, entry in kernels.items():
+        entry["launches"] = launches[name]
+    print(json.dumps({"kernels": list(kernels.values())}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
