@@ -8,18 +8,35 @@ each printing a line, each failing loudly:
 
   1. device  — requires torch.cuda.is_available(); prints the versions and
                the card's name and power limit (nvidia-smi);
-  2. build   — compiles smh_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+  2. build   — compiles smh_tpu_torch/csrc/*.cu with nvcc for sm_90a (one
+               nvcc per source, all started together);
   3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card at the main path's shapes (exact), the classify kernel
-               also against the numpy oracle over the whole 256^3 colour
-               cube, with CUDA-event times of kernel and plain version;
+               card at the main path's shapes (exact), the classify and
+               fused mask kernels also over the whole 256^3 colour cube
+               (classify against the numpy oracle too), the fused mask
+               kernel at ragged widths with markers in the last column and
+               across its tile seams, with CUDA-event times of kernel and
+               plain version;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
-               the numpy oracle, the on-device scales read, both kernels
+               the numpy oracle, the on-device scales read, every kernel
                launched by the main path, and the hostpack bytes against
-               the same backend on the CPU (plain versions);
+               the same backend on the CPU (plain versions); then a
+               dense-marker sequence until the sparse transport steps
+               aside, its full-plane hostpacks (kernel 3's bytes) against
+               the CPU path;
   5. timing  — p50 of process() over warm frames at 1080p and 4K;
-  6. loop    — CaptureThread -> VisionLoop delivers an update.
+  6. loop    — CaptureThread -> VisionLoop delivers an update;
+  7. live    — the pipelined VisionLoop (delta upload, consume views, async
+               fetch) over a cycling marker-drag sequence at 1080p and 4K,
+               threaded submit off and on, at the 15 FPS cap and uncapped:
+               every update equals the synchronous result of some input
+               frame, no frame error is logged, one full upload per chain,
+               and the submit half runs under sync-debug mode "error";
+               prints fps, H2D bytes per delta frame and frame -> update
+               p50/p90;
+  8. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
+               pipelined with async scales, delivers an update and stops.
 
 The last lines are a JSON object with the per-kernel results, the card's
 name and power limit, and {"ok": true, "device": {...}}. Any failed check
@@ -29,6 +46,7 @@ raises, so the script exits non-zero and prints no result. Imports no JAX.
 from __future__ import annotations
 
 import json
+import logging
 import statistics
 import subprocess
 import sys
@@ -40,6 +58,10 @@ import torch
 MARKER = [((120, 150), (700, 520))]  # map-ROI coordinates at 1080p
 CUBE_SIDE = 4096  # 4096 x 4096 = every 8-bit RGB colour once
 N_TIMED = 50
+ALPHA_BGRA = (0, 255, 64, 255)  # the alpha fireteam's marker colour
+DRAG_FRAMES = 12  # frames in the live loop's cycling marker drag
+LIVE_SIZES = ((1920, 1080), (3840, 2160))
+LIVE_UPDATES = ((15.0, 24), (None, 90))  # (fps cap or None, updates per run)
 
 
 def require(cond: bool, msg: str) -> None:
@@ -83,6 +105,22 @@ def frame_for(w: int, h: int) -> np.ndarray:
         scale_texts=[("300m", (60 * k, 170 * k))],
         scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
     )
+
+
+class ErrorCount(logging.Handler):
+    """Counts ERROR records: VisionLoop logs and drops a failing frame."""
+
+    def __init__(self) -> None:
+        super().__init__(level=logging.ERROR)
+        self.messages: list[str] = []
+
+    def emit(self, record) -> None:
+        self.messages.append(record.getMessage())
+
+
+def percentile(xs, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -178,6 +216,55 @@ def phase_kernels(dev: torch.device) -> dict:
         "name": "quiet_walk", "route": "cuda",
         "source": "smh_tpu_torch/csrc/quiet_walk.cu",
         "replaces": "smh_tpu/ops/pallas_kernels.py:321",
+        "max_abs_err": err, "ms": times[1080][0], "plain_ms": times[1080][1],
+    }
+
+    # -- kernel 3: the cube, ragged widths, tile seams, the map shapes ---------
+    err = 0
+
+    def check_mask(rgb: np.ndarray, label: str):
+        nonlocal err
+        p = [torch.from_numpy(np.ascontiguousarray(rgb[..., c])).to(dev) for c in range(3)]
+        got = K.fused_mask_bits(*p)
+        want = K.fused_mask_bits_plain(*p)
+        require(got.shape == want.shape, f"fused_mask shape {tuple(got.shape)} != {tuple(want.shape)} ({label})")
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        require(err == 0, f"fused_mask kernel != plain ({label})")
+        return p, got
+
+    def marker_rich(h: int, w: int) -> np.ndarray:
+        rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        rgb[rng.random((h, w)) < 0.1] = ALPHA_BGRA[2::-1]
+        rgb[rng.random(h) < 0.5, w - 1] = ALPHA_BGRA[2::-1]  # the last column
+        return rgb
+
+    _, got = check_mask(np.stack([r, g, b], axis=-1).reshape(CUBE_SIDE, CUBE_SIDE, 3), "cube")
+    print(f"kernels: fused_mask exact on the 256^3 cube ({int(got.sum())} byte sum)", flush=True)
+    ragged = (13, 21, 37, 263, 987, 1973)  # W % 8 != 0 and W % 32 != 0
+    for w in ragged:
+        check_mask(marker_rich(int(rng.integers(5, 70)), w), f"ragged w={w}")
+    th, tw = K.FUSED_TILE_H, K.FUSED_TILE_W
+    for h in (th - 1, th, th + 1, 2 * th + 1, 3 * th - 1):
+        for w in (tw - 1, tw, tw + 1, 2 * tw + 3):
+            rgb = np.full((h, w, 3), 40, dtype=np.uint8)
+            rgb[max(th - 2, 0) : th + 2, tw - 3 : min(tw + 3, w)] = ALPHA_BGRA[2::-1]  # across both seams
+            rgb[h - 1, w - 1] = rgb[0, 0] = ALPHA_BGRA[2::-1]
+            check_mask(rgb, f"seams {h}x{w}")
+    print(f"kernels: fused_mask exact at ragged widths {ragged} with last-column markers and "
+          f"across the {th}x{tw} tile seams", flush=True)
+    times = {}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        gm = C.map_geometry(w, h)
+        p, _ = check_mask(marker_rich(gm.map_h, gm.map_w), f"{gm.map_h}x{gm.map_w}")
+        t_k = cuda_ms(lambda: K.fused_mask_bits(*p))
+        t_p = cuda_ms(lambda: K.fused_mask_bits_plain(*p))
+        times[h] = (t_k, t_p)
+        print(f"kernels: fused_mask {gm.map_h}x{gm.map_w} exact; kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms", flush=True)
+    results["fused_mask"] = {
+        "name": "fused_mask", "route": "cuda",
+        "source": "smh_tpu_torch/csrc/fused_mask.cu",
+        "replaces": "smh_tpu/ops/pallas_kernels.py:155",
         "max_abs_err": err, "ms": times[1080][0], "plain_ms": times[1080][1],
     }
     return results
@@ -286,6 +373,55 @@ def phase_slice(dev: torch.device) -> dict:
     return launches
 
 
+def phase_dense(dev: torch.device) -> dict:
+    """The non-sparse route: marker stripes on every 4th row overflow every
+    sparse rung, so after _SP_OFF_AFTER misses (each fetching kernel 3's
+    full bit plane) the sparse transport steps aside and the hostpack
+    carries that plane. Hostpacks and the reconstructed masks equal the
+    CPU path's, frame by frame."""
+    from smh_tpu import consts as C
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        g = C.map_geometry(w, h)
+        frame = frame_for(w, h)
+        frame[g.map_y : g.map_y + g.map_h : 4, g.map_x : g.map_x + g.map_w] = ALPHA_BGRA
+        backends = [cb.CudaBackend(dev), cb.CudaBackend("cpu")]
+        for be in backends:
+            be.scales_device_ok = True
+        K.reset_launches()
+        routes = []
+        for i in range(cb._SP_OFF_AFTER + 2):
+            packs = []
+            for be in backends:
+                be.load_frame(frame)
+                require(be.crop_to_map(True) is not None, "map gate closed on the dense frame")
+                packs.append((be._fetch[0].numpy(), be._host["lsd_crop_bits"], be._dispatch_flags))
+            (pg, bits_g, flags), (pc, bits_c, flags_c) = packs
+            require(flags == flags_c, f"dispatch flags differ: {flags} vs {flags_c}")
+            layout = opp.hostpack_layout(
+                g.map_h, g.map_w, with_ocr=True, with_quiet=True, scales_inline=flags[3],
+                sparse_budget=flags[4],
+            )
+            require(hostpacks_match(pg, pc, layout), f"dense frame {i}: hostpack differs from the CPU path")
+            require(bits_g.shape == bits_c.shape and bool((bits_g == bits_c).all()),
+                    f"dense frame {i}: mask bits differ from the CPU path")
+            routes.append("sparse" if flags[4] is not None else "full-plane")
+        torch.cuda.synchronize()
+        for name, n in K.LAUNCHES.items():
+            launches[name] += n
+        st = backends[0].stats
+        require(routes[-1] == "full-plane" and st["lsd_sparse_misses"] == cb._SP_OFF_AFTER,
+                f"sparse did not step aside: {routes}, {st}")
+        require(K.LAUNCHES["fused_mask"] > 0, f"the non-sparse route skipped kernel 3: {K.LAUNCHES}")
+        print(f"slice: dense {w}x{h} routes {routes}, sparse misses {st['lsd_sparse_misses']}, "
+              f"hostpacks and masks == CPU path, launches {dict(K.LAUNCHES)}", flush=True)
+    return launches
+
+
 def phase_timing(dev: torch.device, card: str) -> None:
     from smh_tpu.squadex.capture import Frame
     from smh_tpu_torch.ops import pipeline as opp
@@ -308,7 +444,7 @@ def phase_timing(dev: torch.device, card: str) -> None:
             torch.cuda.set_sync_debug_mode("error")
             try:
                 opp.analyze_packed_flat(
-                    be._rois, map_h=g.map_h, map_w=g.map_w, btn_h=g.btn_h, btn_w=g.btn_w,
+                    be._resident, map_h=g.map_h, map_w=g.map_w, btn_h=g.btn_h, btn_w=g.btn_w,
                     grayscale=True, scales_inline="device", sparse_budget=be._dispatch_flags[4],
                     templates=be._templates,
                 )
@@ -344,6 +480,209 @@ def phase_loop(dev: torch.device) -> None:
           f"ratio {got.meters_to_px_ratio:.6f}", flush=True)
 
 
+def drag_frames(w: int, h: int) -> list:
+    """A marker drag: the far end moves 8 px right and 5 px up per frame
+    (at 1080p scale)."""
+    from smh_tpu_torch import testing
+
+    k = w // 1920
+    (x0, y0), (x1, y1) = MARKER[0]
+    return [
+        testing.make_frame(
+            w, h,
+            marker_lines=[((x0 * k, y0 * k), ((x1 + 8 * i) * k, (y1 - 5 * i) * k))],
+            scale_texts=[("300m", (60 * k, 170 * k))],
+            scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
+        )
+        for i in range(DRAG_FRAMES)
+    ]
+
+
+def summarize(r) -> tuple:
+    return (
+        tuple((l.p0.x, l.p0.y, l.p1.x, l.p1.y) for l in r.markers),
+        r.meters_to_px_ratio,
+        r.minimap_bounds,
+    )
+
+
+def phase_live(dev: torch.device, card: str) -> dict:
+    """The pipelined live loop at 1080p and 4K, threaded submit off and on,
+    at the 15 FPS cap and uncapped."""
+    from smh_tpu.squadex.capture import CaptureThread, Frame
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision.pipeline import VisionLoop
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    table = []
+    errors = ErrorCount()
+    logging.getLogger("smh_tpu").addHandler(errors)
+    try:
+        for w, h in LIVE_SIZES:
+            frames = drag_frames(w, h)
+            state = new_state(dev)
+            try:
+                truth = {summarize(state.process(Frame(f, 96))): i for i, f in enumerate(frames)}
+            finally:
+                state.close()
+            require(len(truth) == DRAG_FRAMES, f"drag frames are not distinct: {len(truth)}")
+
+            # The submit half queues on the stream without a host sync: a
+            # full upload on a fresh backend, then two deltas.
+            state = new_state(dev)
+            try:
+                state.process(Frame(frames[0], 96))
+                be = state.delegate.backend
+                fresh = type(be)(dev)
+                fresh.scales_device_ok = True
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    for b, f in ((fresh, frames[1]), (be, frames[2]), (be, frames[3])):
+                        b.load_frame(f)
+                        b.dispatch(grayscale=True)
+                        b.snapshot_job()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                require(fresh.stats["full_uploads"] == 1 and be.stats["delta_frames"] == 2,
+                        f"submit half: {fresh.stats} / {be.stats}")
+            finally:
+                state.close()
+            print(f"live: {w}x{h} submit half (load_frame + dispatch + snapshot_job, full and delta) "
+                  f"raised no sync under sync-debug mode 'error'", flush=True)
+
+            for threaded in (False, True):
+                for fps, want in LIVE_UPDATES:
+                    ids = {id(f): i for i, f in enumerate(frames)}
+                    t_take = {}
+                    t_up = []  # (time, frame index or -1, ms since the loop took that frame)
+
+                    class Cycle:
+                        def __init__(self):
+                            self.i = 0
+
+                        def grab(self):
+                            self.i += 1
+                            return Frame(frames[self.i % DRAG_FRAMES], 96)
+
+                    def on_update(r, _debug):
+                        now = time.perf_counter()
+                        i = truth.get(summarize(r) if r is not None else None, -1)
+                        t_up.append((now, i, (now - t_take[i]) * 1e3 if i in t_take else None))
+
+                    state = new_state(dev)
+                    cap = CaptureThread(Cycle()).start()
+                    take = cap.fresh_frame
+
+                    def fresh_frame():
+                        f = take()
+                        if f is not None:
+                            t_take[ids[id(f.image)]] = time.perf_counter()
+                        return f
+
+                    cap.fresh_frame = fresh_frame
+                    loop = VisionLoop(
+                        state, cap, on_update, fps=fps or 1e6, pipelined=True, threaded_submit=threaded,
+                    )
+                    K.reset_launches()
+                    n_err = len(errors.messages)
+                    loop.start()
+                    try:
+                        deadline = time.time() + 120
+                        while len(t_up) < want and time.time() < deadline:
+                            time.sleep(0.01)
+                    finally:
+                        loop.stop()
+                        cap.stop()
+                    torch.cuda.synchronize()
+                    for name, n in K.LAUNCHES.items():
+                        launches[name] += n
+                    label = f"{w}x{h} threaded={threaded} fps={'uncapped' if fps is None else int(fps)}"
+                    require(len(errors.messages) == n_err, f"{label}: frame errors {errors.messages[n_err:]}")
+                    require(len(t_up) >= want, f"{label}: {len(t_up)} updates in 120 s")
+                    bad = [i for _, i, _ in t_up if i < 0]
+                    require(not bad, f"{label}: {len(bad)} updates outside the truth set")
+                    require(len({i for _, i, _ in t_up}) >= DRAG_FRAMES // 2, f"{label}: low coverage")
+                    require(all(n > 0 for n in K.LAUNCHES.values()), f"{label}: skipped a kernel {K.LAUNCHES}")
+                    be = state.delegate.backend
+                    st = dict(be.stats)
+                    require(st["full_uploads"] == 1 and st["delta_frames"] > 0,
+                            f"{label}: not one full upload then deltas: {st}")
+                    # The window before stop(): stopping drains the pending
+                    # frames in a burst. The first 4 updates are warm-up.
+                    steady = t_up[4:want]
+                    rate = (len(steady) - 1) / (steady[-1][0] - steady[0][0])
+                    lat = [ms for _, _, ms in steady]
+                    row = {
+                        "res": f"{w}x{h}", "threaded": threaded,
+                        "fps_cap": "uncapped" if fps is None else int(fps),
+                        "updates": len(t_up), "fps": rate,
+                        "p50_ms": percentile(lat, 0.5), "p90_ms": percentile(lat, 0.9),
+                        "h2d_bytes_per_delta_frame": (st["h2d_bytes"] - be._mirror.size) / st["delta_frames"],
+                        "full_uploads": st["full_uploads"], "delta_frames": st["delta_frames"],
+                        "frame_errors": 0,
+                    }
+                    table.append(row)
+                    print(f"live: {label}: {row['updates']} updates all in the truth set, "
+                          f"{rate:.2f} fps, frame->update p50 {row['p50_ms']:.2f} ms p90 {row['p90_ms']:.2f} ms, "
+                          f"H2D {row['h2d_bytes_per_delta_frame']:.0f} B per delta frame "
+                          f"({st['delta_frames']} deltas, 1 full upload of {be._mirror.size} B), "
+                          f"0 frame errors, launches {dict(K.LAUNCHES)} on {card}", flush=True)
+    finally:
+        logging.getLogger("smh_tpu").removeHandler(errors)
+    print("live: " + json.dumps(table), flush=True)
+    return launches
+
+
+def phase_app(dev: torch.device) -> dict:
+    """`python -m smh_tpu_torch.app --synthetic --pipelined --no-web` without
+    the signal handler: the CLI's source and flags, an update, a clean stop."""
+    from smh_tpu import app as smh_app
+    from smh_tpu.settings import Settings
+    from smh_tpu_torch import app as tapp
+    from smh_tpu_torch.ops import kernels as K
+
+    args = tapp.build_parser().parse_args(["--synthetic", "--pipelined", "--no-web", "--device", str(dev)])
+    settings = Settings(path=None)
+    settings.set("hardware_acceleration", True, save=False)
+    errors = ErrorCount()
+    logging.getLogger("smh_tpu").addHandler(errors)
+    K.reset_launches()
+    app = tapp.App(
+        smh_app._build_source(args), settings=settings, device=args.device,
+        serve=not args.no_web, pipelined=args.pipelined, scales_async=not args.sync_scales,
+    )
+    updates = []
+    deliver = app.loop.on_update
+
+    def on_update(results, debug):
+        updates.append(results)
+        deliver(results, debug)
+
+    app.loop.on_update = on_update
+    try:
+        app.start()
+        deadline = time.time() + 120
+        while not any(r is not None and len(r.markers) == 1 for r in updates) and time.time() < deadline:
+            time.sleep(0.05)
+    finally:
+        app.stop()
+        logging.getLogger("smh_tpu").removeHandler(errors)
+    torch.cuda.synchronize()
+    res = next((r for r in updates if r is not None and len(r.markers) == 1), None)
+    require(res is not None, "the app delivered no update with one marker in 120 s")
+    require(not errors.messages, f"the app logged errors: {errors.messages}")
+    require(not app.loop._thread.is_alive() and not app.capture._thread.is_alive(), "the app did not stop")
+    be = app.state.delegate.backend
+    require(be.name == "cuda" and be.device.type == "cuda", "the app did not run the CUDA backend")
+    require(all(n > 0 for n in K.LAUNCHES.values()), f"the app skipped a kernel: {K.LAUNCHES}")
+    print(f"app: smh_tpu_torch.app.App (synthetic, pipelined, async scales, engine "
+          f"{type(app.ocr_engine).__name__}) delivered {len(updates)} updates, markers "
+          f"{[(l.p0, l.p1) for l in res.markers]}, stats {be.stats}, launches {dict(K.LAUNCHES)}; "
+          f"stopped cleanly", flush=True)
+    return dict(K.LAUNCHES)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("device: torch.cuda.is_available() is False; this smoke needs a CUDA device",
@@ -365,12 +704,14 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     launches = phase_slice(dev)
+    main_paths = [launches, phase_dense(dev)]
     phase_timing(dev, card)
     phase_loop(dev)
+    main_paths += [phase_live(dev, card), phase_app(dev)]
     require("jax" not in sys.modules, "the port imported jax")
 
     for name, entry in kernels.items():
-        entry["launches"] = launches[name]
+        entry["launches"] = sum(p[name] for p in main_paths)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

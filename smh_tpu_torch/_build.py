@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every `smh_tpu_torch/csrc/*.cu` file is compiled by `nvcc` into ONE shared
-library with a plain C interface and loaded with ctypes. The library lands in
-`smh_tpu_torch/build/<hash>/`, keyed by a hash of the sources and the flags,
-so an unchanged checkout builds once and a changed source never loads a
-stale binary. The build runs at first use (the first CUDA launch), never at
-import: the CPU tests import every module on machines with no `nvcc`.
+Every `smh_tpu_torch/csrc/*.cu` file is compiled by its own `nvcc` process
+(all started together, `-I csrc` for the shared `*.cuh` headers) and the
+objects are linked into ONE shared library with a plain C interface, loaded
+with ctypes. The library lands in `smh_tpu_torch/build/<hash>/`, keyed by a
+hash of the sources, the headers and the flags, so an unchanged checkout
+builds once and a changed source or header never loads a stale binary. The
+build runs at first use (the first CUDA launch), never at import: the CPU
+tests import every module on machines with no `nvcc`.
 
 Each C entry point takes its pointers and the CUDA stream as `void*` and
 returns `cudaGetLastError()` after its launch; `check()` turns a non-zero
@@ -34,7 +36,7 @@ LIB_NAME = "libsmh_torch_kernels.so"
 # never contracts into an FMA (the classify kernel must be bit-exact).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _VP = ctypes.c_void_p
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "smh_classify_luma": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP],
     # (p0, p1, p2, colbits, rowbits, B, H, W, cy, lv, cx, lh, stream)
     "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # (r, g, b, bits, H, W, params, stream)
+    "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()
@@ -56,6 +60,10 @@ build_seconds: Optional[float] = None  # wall time of this process's build (None
 
 def sources() -> list[pathlib.Path]:
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -72,15 +80,23 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256()
-    for path in sources():
+    for path in sources() + headers():
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
-def build_command(out: pathlib.Path, nvcc: str = "nvcc") -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(p) for p in sources())]
+def compile_commands(objdir: pathlib.Path, nvcc: str = "nvcc") -> list[list[str]]:
+    """One `nvcc -c` per source, each writing `<objdir>/<stem>.o`."""
+    return [
+        [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(objdir / f"{src.stem}.o")]
+        for src in sources()
+    ]
+
+
+def link_command(out: pathlib.Path, objdir: pathlib.Path, nvcc: str = "nvcc") -> list[str]:
+    return [nvcc, "-shared", "-o", str(out), *(str(objdir / f"{s.stem}.o") for s in sources())]
 
 
 def lib_path() -> pathlib.Path:
@@ -93,16 +109,35 @@ def build() -> pathlib.Path:
     out = lib_path()
     if out.exists():
         return out
-    out.parent.mkdir(parents=True, exist_ok=True)
+    objdir = out.parent / f"obj.{os.getpid()}"
+    objdir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        build_command(tmp, _nvcc()), capture_output=True, text=True, timeout=900
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+    procs = [
+        subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for cmd in compile_commands(objdir, nvcc)
+    ]
+    failures = []
+    try:
+        for proc in procs:
+            log, _ = proc.communicate(timeout=900)
+            if proc.returncode != 0:
+                failures.append(f"{' '.join(proc.args)} ({proc.returncode}):\n{log}")
+    finally:
+        for proc in procs:  # a timeout leaves no compiler behind
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if not failures:
+        link = subprocess.run(
+            link_command(tmp, objdir, nvcc), capture_output=True, text=True, timeout=300
         )
+        if link.returncode != 0:
+            failures.append(f"link ({link.returncode}):\n{link.stdout}\n{link.stderr}")
+    shutil.rmtree(objdir, ignore_errors=True)
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a torn file
     build_seconds = time.perf_counter() - t0
     return out

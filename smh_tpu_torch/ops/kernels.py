@@ -1,4 +1,4 @@
-"""The port's two hand-written CUDA kernels, their wrappers, their plain
+"""The port's three hand-written CUDA kernels, their wrappers, their plain
 PyTorch twins and their launch counts.
 
 Counterpart of smh_tpu/ops/pallas_kernels.py. Each wrapper takes the plain
@@ -22,6 +22,13 @@ path went through the kernels.
   block ANDs its column and row partials into [B, W] / [B, H] 3-bit words
   with atomicAnd (bitwise, so block order cannot matter), and the walks run
   in PyTorch on those vectors.
+* fused_mask_bits -> csrc/fused_mask.cu
+  Replaces pallas_kernels.py::_fused_mask_kernel + _fused_mask_kernel_hbm
+  (fused_mask_bits_pallas). Bound by bytes: 3 read per pixel, 1/8 written;
+  classify -> L1 dilate -> MSB-first pack from a shared-memory tile with a
+  1-px halo, so the marker mask never reaches device memory. Pad bits are
+  zero, as in the XLA path (the Pallas kernel sets them where a marker
+  touches the last column of a ragged row).
 """
 
 from __future__ import annotations
@@ -34,11 +41,14 @@ from smh_tpu import consts as C
 
 from .. import _build
 
-LAUNCHES = {"classify_luma": 0, "quiet_walk": 0}
+LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0}
 
 # Rows per block of the quiet-walk kernel (TH in csrc/quiet_walk.cu): the
 # tile seams the tests and the chip smoke place their heights around.
 QUIET_TILE_H = 8
+# Tile of the fused mask kernel (TH rows x TW pixels in csrc/fused_mask.cu).
+FUSED_TILE_H = 8
+FUSED_TILE_W = 256
 
 
 def reset_launches() -> None:
@@ -180,3 +190,38 @@ def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) ->
     _build.check(code, "smh_quiet_walk")
     LAUNCHES["quiet_walk"] += 1
     return rect_from_bits(colbits, rowbits, h, w)
+
+
+# -- kernel 3: fused classify -> dilate -> bit-pack ---------------------------------
+
+
+def fused_mask_bits_plain(r8, g8, b8) -> torch.Tensor:
+    """Plain PyTorch twin of the fused mask kernel:
+    pack_bits(_dilate_l1_radius1_bool(classify)) -> u8 [H, ceil(W/8)]."""
+    from . import hsv
+    from . import pipeline as opp
+
+    marker = hsv.is_any_map_marker_color_planes(r8, g8, b8)
+    return opp.pack_bits(opp._dilate_l1_radius1_bool(marker))
+
+
+def fused_mask_bits(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
+    """u8 [H, W] R, G, B planes -> the dilated marker mask bit-packed MSB
+    first, u8 [H, ceil(W/8)], pad bits zero."""
+    device = _check_planes((r8, g8, b8), 2)
+    if device.type == "cpu":
+        return fused_mask_bits_plain(r8, g8, b8)
+    r8, g8, b8 = (p.contiguous() for p in (r8, g8, b8))
+    h, w = r8.shape
+    bits = torch.empty((h, (w + 7) // 8), dtype=torch.uint8, device=device)
+    if bits.numel() == 0:
+        return bits
+    lib = _build.load()
+    with torch.cuda.device(device):
+        code = lib.smh_fused_mask(
+            r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w,
+            ctypes.addressof(_CLASSIFY_PARAMS), _stream_ptr(r8),
+        )
+    _build.check(code, "smh_fused_mask")
+    LAUNCHES["fused_mask"] += 1
+    return bits

@@ -3,13 +3,15 @@
 Port of smh_tpu/ops/pipeline.py (the `channels=3` plane-major flat upload,
 full-plane crop, `scales_inline` "device" or "none", sparse mask transport
 on or off). One call of `analyze_packed_flat` runs the whole device half of
-a frame: marker classify + luma (CUDA kernel 1), the L1 dilate and bit-pack,
-the OCR preprocess and scales binarize of the map's bottom-right quadrant,
-the minimap rect (CUDA kernel 2), the red gate, the on-device scales read,
-the mask bbox, the sparse word compaction and the checksums — all packed
-into ONE u8 hostpack whose bytes equal the JAX package's hostpack.
+a frame: marker classify + luma (CUDA kernel 1), the L1 dilate, the dilated
+mask's bit plane (CUDA kernel 3), the OCR preprocess and scales binarize of
+the map's bottom-right quadrant, the minimap rect (CUDA kernel 2), the red
+gate, the on-device scales read, the mask bbox, the sparse word compaction
+and the checksums — all packed into ONE u8 hostpack whose bytes equal the
+JAX package's hostpack. `analyze_delta_flat` first rebuilds the frame from
+a device-resident buffer and the changed 32 B chunks (the delta upload).
 
-On a CUDA tensor the two kernels launch; on a CPU tensor their plain twins
+On a CUDA tensor the three kernels launch; on a CPU tensor their plain twins
 run (ops/kernels.py). Nothing here reads a tensor's value on the host or
 copies from host memory (constants are made on the device: a pageable
 host-to-device copy would synchronise the stream), so a dispatch queues on
@@ -318,12 +320,14 @@ def _analyze_map_planes(
     ui = luma if grayscale else torch.stack([r8, g8, b8], dim=-1)
     ui_flat = luma if grayscale else r8.to(I32) + g8.to(I32) + b8.to(I32)
 
+    # lsd_bool feeds the bbox and the sparse words; the bit plane comes from
+    # the fused mask kernel (the same bytes as pack_bits(lsd_bool)).
     lsd_bool = _dilate_l1_radius1_bool(marker)
     out = {
         "ui": ui,
         "ui_check": _weighted_check(ui_flat),
         "lsd_bool": lsd_bool,
-        "lsd_bits": pack_bits(lsd_bool),
+        "lsd_bits": kernels.fused_mask_bits(r8, g8, b8),
     }
     if with_ocr:
         brq_h, brq_w = map_h // 2, map_w // 2
@@ -420,6 +424,30 @@ def analyze_packed_flat(
         out, _red_gate_roi(btn), with_ocr, with_quiet, scales_inline,
         sparse_budget=sparse_budget, templates=templates,
     )
+
+
+def analyze_delta_flat(
+    resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int, **kw
+) -> dict:
+    """The delta-upload dispatch: `resident` is the previous frame's flat
+    buffer on the device, `buf` the upload — `bucket` int32 chunk indices
+    then `bucket` chunks of `chunk` bytes. The new frame is scattered into
+    a FRESH buffer (clone, then `index_copy_`): a consume view of the
+    previous frame may still re-dispatch from `resident`, so it is never
+    written in place. Index padding repeats a real index with identical
+    data, so the duplicate writes leave one deterministic result. Returns
+    analyze_packed_flat's outputs (`kw` are its flags) plus "resident", the
+    new buffer. The JAX counterpart is
+    smh_tpu.ops.pipeline._analyze_delta_flat(..., channels=3)."""
+    if buf.dtype != torch.uint8 or buf.numel() != bucket * (4 + chunk):
+        raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold {bucket} chunks of {chunk}")
+    idx = buf[: 4 * bucket].view(I32).to(I64)
+    data = buf[4 * bucket :].view(bucket, chunk)
+    rois = resident.clone()
+    rois.view(-1, chunk).index_copy_(0, idx, data)
+    out = analyze_packed_flat(rois, **kw)
+    out["resident"] = rois
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -36,8 +36,9 @@ def _settings(hw=True):
 
 @pytest.fixture
 def states(monkeypatch):
-    # Full uploads on both sides (the port has no delta transport yet; the
-    # delta path would compile a new JAX bucket per changed-chunk count).
+    # Full uploads on both sides (the JAX delta path would compile a new
+    # bucket per changed-chunk count; tests/test_torch_delta.py holds the
+    # port's delta chain).
     monkeypatch.setenv("SMH_DELTA", "0")
     port = tpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine(), device="cpu")
     ref = jpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine())
@@ -168,11 +169,12 @@ def test_pack_rois_fallback_matches_native_pack():
     be = cb.CudaBackend(device="cpu")
     frame = _frame()
     be.load_frame(frame)
-    native_pack = be._pending
+    native_pack = be._pending_host
+    assert be._pending[0] == "full" and be._pending[1] is native_pack
     strided = np.zeros((H, W, 8), np.uint8)[..., ::2]
     strided[...] = frame
     be.load_frame(strided)
-    np.testing.assert_array_equal(be._pending, native_pack)
+    np.testing.assert_array_equal(be._pending_host, native_pack)
     g = be.geom
     mr = frame[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w]
     br = frame[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w]

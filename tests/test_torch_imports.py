@@ -15,10 +15,13 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "smh_tpu_torch"
 
 # smh_tpu modules that import jax at module level (directly or through them).
+# smh_tpu.app is not one of them: only its main() imports jax (for the
+# compile cache), and the port reuses its App class
+# (test_app_import_leaves_jax_out checks it).
 JAX_MODULES = (
     "jax", "jaxlib", "smh_tpu.ops", "smh_tpu.vision.tpu_backend",
     "smh_tpu.vision.batch", "smh_tpu.jax_cache", "smh_tpu.parallel",
-    "smh_tpu.worker", "smh_tpu.app",
+    "smh_tpu.worker",
 )
 
 
@@ -37,7 +40,24 @@ def test_import_leaves_jax_out_in_a_subprocess():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 8 else 0)\n"
+        "sys.exit(1 if bad or len(names) < 9 else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_app_import_leaves_jax_out():
+    """The app module, smh_tpu's App it builds on, and the CLI's argument
+    parsing import no JAX (smh_tpu.app.main would, the port's main does not)."""
+    code = (
+        "import sys\n"
+        "import smh_tpu_torch.app as a\n"
+        "a.build_parser().parse_args(['--synthetic', '--pipelined', '--no-web'])\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad or 'smh_tpu.app' not in sys.modules else 0)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120

@@ -111,16 +111,25 @@ def test_rect_from_kernel_words_matches_jax(trial, h):
 
 
 def test_build_command_compiles_the_csrc_files_for_sm90a():
+    """One nvcc per source (started together), each for sm_90a with the
+    csrc headers on the include path, then one link into the .so."""
     from smh_tpu_torch import _build
 
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"classify_luma.cu", "quiet_walk.cu"}
+    assert {p.name for p in srcs} == {"classify_luma.cu", "quiet_walk.cu", "fused_mask.cu"}
+    assert {p.name for p in _build.headers()} == {"classify.cuh"}
     assert all(p.parent == CSRC for p in srcs)
-    cmd = _build.build_command(pathlib.Path("x.so"))
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-O3" in cmd
-    assert not any("fast_math" in a or "fast-math" in a for a in cmd)
-    assert all(str(p) in cmd for p in srcs)
+    objdir = pathlib.Path("obj")
+    cmds = _build.compile_commands(objdir)
+    assert len(cmds) == len(srcs)
+    for src, cmd in zip(srcs, cmds):
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-O3" in cmd and "-c" in cmd and str(src) in cmd
+        assert cmd[cmd.index("-I") + 1] == str(CSRC)
+        assert not any("fast_math" in a or "fast-math" in a for a in cmd)
+    link = _build.link_command(pathlib.Path("x.so"), objdir)
+    assert "-shared" in link
+    assert all(str(objdir / f"{p.stem}.o") in link for p in srcs)
     lib = _build.lib_path()
     assert lib.parent.parent == _build.BUILD_ROOT and lib.parent.name == _build.source_hash()
 
@@ -140,7 +149,8 @@ def test_classify_launch_counter_untouched_on_cpu():
     p = torch.zeros((5, 7), dtype=torch.uint8)
     kernels.classify_luma_planes(p, p, p)
     kernels.minimap_rect_planes(p[None], p[None], p[None])
-    assert kernels.LAUNCHES == {"classify_luma": 0, "quiet_walk": 0}
+    kernels.fused_mask_bits(p, p, p)
+    assert kernels.LAUNCHES == {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -154,3 +164,18 @@ def test_wrappers_reject_bad_inputs():
     meta = torch.zeros((4, 6), dtype=torch.uint8, device="meta")
     with pytest.raises(ValueError):
         kernels.classify_luma_planes(meta, meta, meta)
+
+
+def test_source_hash_moves_with_a_shared_header(tmp_path, monkeypatch):
+    """A change to csrc/*.cuh alone must select a new build directory, or
+    the kernels would load a stale library."""
+    from smh_tpu_torch import _build
+
+    for src in _build.sources() + _build.headers():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.source_hash()
+    header = tmp_path / "classify.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.source_hash() != before
+    assert _build.lib_path().parent.name == _build.source_hash()
