@@ -15,8 +15,11 @@ each printing a line, each failing loudly:
                fused mask kernels also over the whole 256^3 colour cube
                (classify against the numpy oracle too), the fused mask
                kernel at ragged widths with markers in the last column and
-               across its tile seams, with CUDA-event times of kernel and
-               plain version;
+               across its tile seams, the ray march on masks at both map
+               sizes with background seeds and seeds on drawn lines (B = 1
+               and 8, with and without max_len: ends and lengths
+               bit-equal), with CUDA-event times of kernel and plain
+               version;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
@@ -25,17 +28,33 @@ each printing a line, each failing loudly:
                dense-marker sequence until the sparse transport steps
                aside, its full-plane hostpacks (kernel 3's bytes) against
                the CPU path;
-  5. timing  — p50 of process() over warm frames at 1080p and 4K;
-  6. loop    — CaptureThread -> VisionLoop delivers an update;
-  7. live    — the pipelined VisionLoop (delta upload, consume views, async
+  5. transports — with SMH_SPARSE=0 at 1080p and 4K: the window route
+               (fit, miss -> full-plane fetch -> escalation), the gray band
+               under a Tesseract-flagged engine and the binary band under
+               smhocr without the device read; hostpacks equal the same
+               backend's CPU path, and the OCR and scales images handed to
+               the engine equal the numpy oracle's (the scales image in the
+               band's rows, background outside); prints D2H bytes per
+               frame;
+     debug   — every debug view with the debug re-pass equals the CPU
+               path's;
+     engine  — lsd_engine="cuda" (the device ray march) gives markers
+               within 1.5 px of the oracle;
+  6. timing  — p50 of process() over warm frames at 1080p and 4K: smhocr's
+               device read with the native and the cuda LSD engine, and a
+               Tesseract-flagged engine on a static frame and over the drag;
+  7. loop    — CaptureThread -> VisionLoop delivers an update;
+  8. live    — the pipelined VisionLoop (delta upload, consume views, async
                fetch) over a cycling marker-drag sequence at 1080p and 4K,
                threaded submit off and on, at the 15 FPS cap and uncapped:
                every update equals the synchronous result of some input
                frame, no frame error is logged, one full upload per chain,
                and the submit half runs under sync-debug mode "error";
                prints fps, H2D bytes per delta frame and frame -> update
-               p50/p90;
-  8. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
+               p50/p90; then, threaded and uncapped, the drag with a panning
+               scale legend, SMH_SPARSE=0 and the gray band (window rungs
+               and band gathers in the submit half, also under "error");
+  9. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
                pipelined with async scales, delivers an update and stops.
 
 The last lines are a JSON object with the per-kernel results, the card's
@@ -47,6 +66,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import statistics
 import subprocess
 import sys
@@ -67,6 +87,34 @@ LIVE_UPDATES = ((15.0, 24), (None, 90))  # (fps cap or None, updates per run)
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def tesseract_flagged():
+    """smhocr's reader under Tesseract's transport flags (binary_ok False,
+    image_derived True, no device read): the gray band route. The card's
+    machine has no libtesseract."""
+    from smh_tpu.ocr.smhocr import SmhOcrEngine
+
+    class TesseractFlagged(SmhOcrEngine):
+        binary_ok = False
+        image_derived = True
+        device_ok = False
+
+    return TesseractFlagged()
+
+
+class sparse_off:
+    """SMH_SPARSE=0 (the window transport) for the duration of a block."""
+
+    def __enter__(self):
+        self.before = os.environ.get("SMH_SPARSE")
+        os.environ["SMH_SPARSE"] = "0"
+
+    def __exit__(self, *exc):
+        if self.before is None:
+            os.environ.pop("SMH_SPARSE", None)
+        else:
+            os.environ["SMH_SPARSE"] = self.before
 
 
 def card_line() -> str:
@@ -270,14 +318,84 @@ def phase_kernels(dev: torch.device) -> dict:
     return results
 
 
-def new_state(device, hardware: bool = True):
+def line_mask(h: int, w: int, lines) -> np.ndarray:
+    """u8 0/255 mask of 1-px lines, L1-dilated like the fused pass's."""
+    m = np.zeros((h, w), dtype=bool)
+    for (x0, y0), (x1, y1) in lines:
+        n = 2 * max(abs(x1 - x0), abs(y1 - y0)) + 1
+        m[np.round(np.linspace(y0, y1, n)).astype(int), np.round(np.linspace(x0, x1, n)).astype(int)] = True
+    d = m.copy()
+    d[1:] |= m[:-1]
+    d[:-1] |= m[1:]
+    d[:, 1:] |= m[:, :-1]
+    d[:, :-1] |= m[:, 1:]
+    return d.astype(np.uint8) * np.uint8(255)
+
+
+def phase_ray_march(dev: torch.device) -> dict:
+    """Kernel 4 against its plain version: ends, winners and lengths
+    bit-equal, on the map shapes, background and line seeds."""
+    from smh_tpu import consts as C
+    from smh_tpu_torch.ops import lsd as L
+
+    rng = np.random.default_rng(1)
+    mg = int(C.LSD_MAX_GAP)
+    cos_t, sin_t = L.theta_tables(dev)
+    times = {}
+    err = 0.0
+    for w, h in ((1920, 1080), (3840, 2160)):
+        gm = C.map_geometry(w, h)
+        k = w // 1920
+        (x0, y0), (x1, y1) = MARKER[0]
+        lines = [((x0 * k, y0 * k), (x1 * k, y1 * k)), ((30 * k, 700 * k), (900 * k, 60 * k))]
+        mask = line_mask(gm.map_h, gm.map_w, lines)
+        white_y, white_x = np.nonzero(mask == 255)
+        black_y, black_x = np.nonzero(mask[::7, ::7] == 0)
+        mask_t = torch.from_numpy(mask).to(dev)
+        diag = float(np.hypot(*mask.shape)) + 1.0
+        for b in (1, 8):
+            on_line = rng.choice(white_y.size, (b + 1) // 2, replace=False)
+            off_line = rng.choice(black_y.size, b // 2, replace=False)
+            pts = np.concatenate([
+                np.stack([white_x[on_line], white_y[on_line]], axis=1),
+                np.stack([black_x[off_line] * 7, black_y[off_line] * 7], axis=1),
+            ]).astype(np.float32)
+            pts_t = torch.from_numpy(pts).to(dev)
+            for max_len in (None, diag):
+                k_total = L.step_bound(gm.map_h, gm.map_w, mg, max_len)
+                got = L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)
+                ex, ey = L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t)
+                want = (ex, ey, *L.finalize_plain(pts_t, ex, ey))
+                torch.cuda.synchronize()
+                for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got, want):
+                    err = max(err, float((g_ - w_).abs().max()))
+                    require(torch.equal(g_, w_), f"ray_march {name} != plain at {gm.map_h}x{gm.map_w} "
+                            f"B={b} max_len={max_len}")
+            longest = float(got[4].max().sqrt())
+            print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B={b} ({(b + 1) // 2} line, {b // 2} background "
+                  f"seeds) bit-equal with and without max_len; longest ray {longest:.2f} px", flush=True)
+        k_total = L.step_bound(gm.map_h, gm.map_w, mg, diag)
+        t_k = cuda_ms(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t))
+        t_p = cuda_ms(lambda: L.finalize_plain(pts_t, *L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t)), n=5)
+        times[h] = (t_k, t_p)
+        print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B=8 k_total={k_total}: kernel {t_k:.4f} ms, "
+              f"plain {t_p:.4f} ms", flush=True)
+    return {
+        "name": "ray_march", "route": "cuda",
+        "source": "smh_tpu_torch/csrc/ray_march.cu",
+        "replaces": "smh_tpu/ops/lsd.py:96",
+        "max_abs_err": err, "ms": times[1080][0], "plain_ms": times[1080][1],
+    }
+
+
+def new_state(device, hardware: bool = True, engine=None):
     from smh_tpu.ocr.smhocr import SmhOcrEngine
     from smh_tpu.settings import Settings
     from smh_tpu_torch.vision.pipeline import VisionState
 
     s = Settings(path=None)
     s.set("hardware_acceleration", hardware, save=False)
-    return VisionState(settings=s, ocr_engine=SmhOcrEngine(), device=device)
+    return VisionState(settings=s, ocr_engine=engine or SmhOcrEngine(), device=device)
 
 
 def hostpacks_match(a: np.ndarray, b: np.ndarray, layout: dict) -> bool:
@@ -320,7 +438,7 @@ def phase_slice(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(n > 0 for n in K.LAUNCHES.values()), f"main path skipped a kernel: {K.LAUNCHES}")
+            require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"main path skipped a kernel: {K.LAUNCHES}")
             be = state.delegate.backend
             require(be.name == "cuda" and be.device.type == "cuda", "the CUDA backend did not run")
             pack_gpu = be._results["hostpack"].cpu().numpy()
@@ -422,22 +540,240 @@ def phase_dense(dev: torch.device) -> dict:
     return launches
 
 
-def phase_timing(dev: torch.device, card: str) -> None:
+def _drive(be, frame, grayscale: bool = True) -> list:
+    """One frame through a backend's stages -> the marker lines."""
+    from smh_tpu import consts as C
+
+    be.load_frame(frame)
+    require(be.crop_to_map(grayscale) is not None, "map gate closed")
+    be.mask_marker_lines()
+    return [(l.p0.x, l.p0.y, l.p1.x, l.p1.y) for l in be.find_marker_lines(C.LSD_MAX_GAP)]
+
+
+def _pair_checks(pair, frame, label: str) -> tuple:
+    """The frame through the card's backend and the CPU path's: the same
+    lines, flags and stats, hostpack bytes equal. -> (flags, hostpack
+    bytes, extra D2H bytes of a miss fetch)."""
+    from smh_tpu_torch.ops import pipeline as opp
+
+    gpu, cpu = pair
+    mask_misses = gpu.stats["lsd_window_misses"] + gpu.stats["lsd_sparse_misses"]
+    fetches = gpu.stats["scalespack_fetches"]
+    lines = [_drive(be, frame) for be in pair]
+    require(lines[0] == lines[1], f"{label}: lines {lines[0]} vs CPU path {lines[1]}")
+    f = gpu._dispatch_flags
+    require(f == cpu._dispatch_flags, f"{label}: flags {f} vs {cpu._dispatch_flags}")
+    require(gpu.stats == cpu.stats, f"{label}: stats {gpu.stats} vs {cpu.stats}")
+    g = gpu.geom
+    layout = opp.hostpack_layout(
+        g.map_h, g.map_w, with_ocr=f.with_ocr, with_quiet=f.with_quiet, crop_h=f.crop_h, crop_w=f.crop_w,
+        scales_inline=f.inline, scales_band=f.band, sparse_budget=f.sparse,
+    )
+    pg, pc = gpu._fetch[0].numpy(), cpu._fetch[0].numpy()
+    require(hostpacks_match(pg, pc, layout), f"{label}: hostpack differs from the CPU path")
+    # A window or sparse miss fetches the full bit plane once; a band miss
+    # or a lazy read the scalespack.
+    extra = (gpu.stats["lsd_window_misses"] + gpu.stats["lsd_sparse_misses"] - mask_misses) * (
+        g.map_h * ((g.map_w + 7) // 8)
+    ) + (gpu.stats["scalespack_fetches"] - fetches) * opp.scalespack_layout(g.map_h, g.map_w)["__total__"]
+    return f, pg.size, extra
+
+
+def phase_transports(dev: torch.device) -> dict:
+    """SMH_SPARSE=0: the window route (fit, miss -> escalate), the gray band
+    under Tesseract's flags and the binary band under smhocr without the
+    device read, each frame on the card and on the CPU path."""
+    from smh_tpu import consts as C
+    from smh_tpu.ocr.engine import OCR_BINARY_THRESHOLD
+    from smh_tpu.vision.reference import ReferenceBackend
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    d2h = {}
+    with sparse_off():
+        for w, h in ((1920, 1080), (3840, 2160)):
+            k = w // 1920
+            g = C.map_geometry(w, h)
+            K.reset_launches()
+            pair = [cb.CudaBackend(dev), cb.CudaBackend("cpu")]
+            for be in pair:
+                be.scales_device_ok = True
+            small = testing.make_frame(
+                w, h, marker_lines=[((120 * k, 150 * k), (380 * k, 320 * k))],
+                scale_texts=[("300m", (60 * k, 170 * k))], scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
+            )
+            routes = []
+            for i, frame in enumerate((small, frame_for(w, h), frame_for(w, h))):
+                f, nbytes, extra = _pair_checks(pair, frame, f"window {w}x{h} frame {i}")
+                routes.append((f.crop_h, f.crop_w, pair[0].stats["lsd_window_misses"], nbytes + extra))
+            require(routes[0][:3] == (g.map_h // 2, g.map_w // 2, 0), f"window did not fit: {routes}")
+            require(routes[1][2] == 1 and routes[2][2] == 1, f"window miss did not escalate: {routes}")
+            require((routes[2][0] or g.map_h) * (routes[2][1] or g.map_w) > routes[1][0] * routes[1][1],
+                    f"window did not grow: {routes}")
+            d2h[f"{w}x{h} window"] = [r[3] for r in routes]
+            print(f"transports: {w}x{h} window route (crop_h, crop_w, misses, D2H bytes) {routes}: "
+                  f"fit, miss -> full-plane fetch -> escalation; hostpacks == CPU path", flush=True)
+
+            oracle = ReferenceBackend()
+            oracle.load_frame(frame_for(w, h))
+            require(oracle.crop_to_map(True) is not None, "oracle gate closed")
+            o_ocr, o_scales = oracle.ocr_preprocess(), oracle.find_scales_preprocess(0)
+            for inline, binary_ok in (("gray", False), ("binary", True)):
+                pair = [cb.CudaBackend(dev), cb.CudaBackend("cpu")]
+                for be in pair:
+                    be.scales_binary_ok, be.scales_image_derived = binary_ok, True
+                f, nbytes, extra = _pair_checks(pair, frame_for(w, h), f"{inline} band {w}x{h}")
+                gpu = pair[0]
+                band = gpu._host.get("scales_band")
+                require(f.inline == inline and f.band is not None and isinstance(band, tuple) and not band[2],
+                        f"{inline} band not taken: {f}, {band}")
+                want_ocr = np.where(o_ocr < OCR_BINARY_THRESHOLD, np.uint8(0), np.uint8(255)) if binary_ok else o_ocr
+                require(np.array_equal(gpu.ocr_preprocess(), want_ocr), f"{inline} band OCR image != oracle")
+                # The band carries every row the bar scan can read; the
+                # canvas outside it is background.
+                rows = slice(band[1], band[1] + f.band)
+                scales_img = gpu.find_scales_preprocess(0)
+                require(np.array_equal(scales_img[rows], o_scales[rows]) and not scales_img[: band[1]].any()
+                        and not scales_img[band[1] + f.band :].any(), f"{inline} band scales image != oracle")
+                require(gpu.stats["scalespack_fetches"] == 0, f"{inline} band fetched the scalespack: {gpu.stats}")
+                d2h[f"{w}x{h} {inline} band"] = nbytes + extra
+                print(f"transports: {w}x{h} {inline} band of {f.band} rows at {band[1]}: hostpack {nbytes} B "
+                      f"== CPU path; OCR and scales images == oracle; no scalespack fetch", flush=True)
+            torch.cuda.synchronize()
+            for name, n in K.LAUNCHES.items():
+                launches[name] += n
+            require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"transports skipped a kernel: {K.LAUNCHES}")
+    print("transports: D2H bytes per frame " + json.dumps(d2h), flush=True)
+    return launches
+
+
+def phase_debug(dev: torch.device) -> dict:
+    """Every debug view of the card's backend with the debug re-pass equals
+    the CPU path's."""
+    from smh_tpu.vision.reference import DebugView
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        K.reset_launches()
+        pair = [cb.CudaBackend(dev), cb.CudaBackend("cpu")]
+        for be in pair:
+            be.scales_device_ok = True
+            be.set_debug(True)
+            be.load_frame(frame_for(w, h))
+            require(be.crop_to_map(True) is not None, "map gate closed")
+        torch.cuda.synchronize()
+        for name, n in K.LAUNCHES.items():
+            launches[name] += n
+        shapes = {}
+        for view in DebugView:
+            got, want = (be.get_debug_view(view) for be in pair)
+            require((got is None) == (view == DebugView.NONE) and (want is None) == (got is None),
+                    f"debug view {view.name}: {got is None} vs {want is None}")
+            if got is not None:
+                require(np.array_equal(got, want), f"debug view {view.name} differs from the CPU path")
+                shapes[view.name] = list(got.shape)
+        print(f"debug: {w}x{h} every view == CPU path: {shapes}", flush=True)
+    return launches
+
+
+def phase_device_engine(dev: torch.device) -> dict:
+    """lsd_engine="cuda": the seed scan over the device ray march finds the
+    oracle's markers within 1.5 px."""
     from smh_tpu.squadex.capture import Frame
+    from smh_tpu_torch.ops import kernels as K
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        frame = frame_for(w, h)
+        oracle_state = new_state("cpu", hardware=False)
+        try:
+            ref = oracle_state.process(Frame(frame, 96))
+        finally:
+            oracle_state.close()
+        state = new_state(dev)
+        try:
+            be = state.delegate.current()
+            be.lsd_engine = "cuda"
+            K.reset_launches()
+            res = state.process(Frame(frame, 96))
+            torch.cuda.synchronize()
+            for name, n in K.LAUNCHES.items():
+                launches[name] += n
+            require(K.LAUNCHES["ray_march"] > 0, f"the cuda engine did not march: {K.LAUNCHES}")
+        finally:
+            state.close()
+        markers = [(l.p0, l.p1) for l in res.markers]
+        ref_markers = [(l.p0, l.p1) for l in ref.markers]
+        require(len(markers) == len(ref_markers) == 1, f"cuda engine markers {markers} vs oracle {ref_markers}")
+        for (a0, a1), (b0, b1) in zip(markers, ref_markers):
+            require(all(abs(p.x - q.x) <= 1.5 and abs(p.y - q.y) <= 1.5 for p, q in ((a0, b0), (a1, b1))),
+                    f"cuda engine marker {markers} vs oracle {ref_markers}")
+        print(f"engine: {w}x{h} lsd_engine=cuda markers {markers} (oracle {ref_markers}), "
+              f"{K.LAUNCHES['ray_march']} ray_march launches", flush=True)
+    return launches
+
+
+def _timed(state, frames, n: int = 20, warm: int = 5) -> tuple:
+    """process() wall times (ms) over n frames cycling through `frames`,
+    after `warm` frames -> (samples, {stage: per-frame ms}, the last result)."""
+    from smh_tpu.squadex.capture import Frame
+    from smh_tpu.vision.pipeline import DebugBox
+
+    samples, stages = [], {}
+    for i in range(warm + n):
+        frame = Frame(frames[i % len(frames)], 96)
+        debug = DebugBox()
+        t0 = time.perf_counter()
+        res = state.process(frame, debug)
+        if i >= warm:
+            samples.append((time.perf_counter() - t0) * 1e3)
+            for stage, sec in debug.timeshares.stages.items():
+                stages.setdefault(stage, []).append(sec * 1e3)
+        require(res is not None and len(res.markers) == 1, "warm frame lost its marker")
+    return samples, stages, res
+
+
+def _summary(samples, stages) -> str:
+    """p50 with its spread, and the three largest stage medians."""
+    top = sorted(((statistics.median(v), k) for k, v in stages.items()), reverse=True)[:3]
+    return (f"p50 {statistics.median(samples):.3f} ms (min {min(samples):.3f}, max {max(samples):.3f}, "
+            f"{len(samples)} warm frames; stage p50s " + ", ".join(f"{k} {v:.2f}" for v, k in top) + ")")
+
+
+def phase_timing(dev: torch.device, card: str) -> None:
+    """Sync process() p50: smhocr's device read (the main path), the same
+    with lsd_engine="cuda", and a Tesseract-flagged engine on a static frame
+    (checksum-only once the checksum settles) and over a panning marker drag
+    (the gray band every frame). smh_tpu's host smhocr reads system fonts, which
+    the card's machine lacks, so the Tesseract-flagged ratio may be None
+    there: those rows time the transport, not the read."""
     from smh_tpu_torch.ops import pipeline as opp
 
     for w, h in ((1920, 1080), (3840, 2160)):
-        frame = Frame(frame_for(w, h), 96)
+        static = [frame_for(w, h)]
+        for label, frames in (("static", static), ("panning drag", drag_frames(w, h, pan=True))):
+            state = new_state(dev, engine=tesseract_flagged())
+            try:
+                samples, stages, res = _timed(state, frames)
+                f = state.delegate.backend._dispatch_flags
+            finally:
+                state.close()
+            print(f"timing: process() {w}x{h} Tesseract-flagged engine, {label} {_summary(samples, stages)}, "
+                  f"inline {f.inline!r} band {f.band} on {card}", flush=True)
         state = new_state(dev)
         try:
-            for _ in range(5):
-                state.process(frame)
-            samples = []
-            for _ in range(20):
-                t0 = time.perf_counter()
-                res = state.process(frame)
-                samples.append((time.perf_counter() - t0) * 1e3)
-                require(res is not None and len(res.markers) == 1, "warm frame lost its marker")
+            state.delegate.current().lsd_engine = "cuda"
+            samples, stages, res = _timed(state, static)
+        finally:
+            state.close()
+        print(f"timing: process() {w}x{h} lsd_engine=cuda {_summary(samples, stages)} on {card}", flush=True)
+        state = new_state(dev)
+        try:
+            samples, stages, res = _timed(state, static)
             # The fused pass must queue on the stream without waiting for it.
             be = state.delegate.backend
             g = be.geom
@@ -453,8 +789,7 @@ def phase_timing(dev: torch.device, card: str) -> None:
             torch.cuda.synchronize()
         finally:
             state.close()
-        print(f"timing: process() {w}x{h} p50 {statistics.median(samples):.3f} ms "
-              f"(min {min(samples):.3f}, max {max(samples):.3f}, 20 warm frames) on {card}; "
+        print(f"timing: process() {w}x{h} {_summary(samples, stages)} on {card}; "
               f"the fused pass queued with no host sync", flush=True)
 
 
@@ -480,22 +815,25 @@ def phase_loop(dev: torch.device) -> None:
           f"ratio {got.meters_to_px_ratio:.6f}", flush=True)
 
 
-def drag_frames(w: int, h: int) -> list:
+def drag_frames(w: int, h: int, pan: bool = False) -> list:
     """A marker drag: the far end moves 8 px right and 5 px up per frame
-    (at 1080p scale)."""
+    (at 1080p scale). pan=True also moves the scale legend 2 px right per
+    frame, so the scales checksum changes every frame and the scales
+    images stay inline (a static legend drops to checksum-only)."""
     from smh_tpu_torch import testing
 
     k = w // 1920
     (x0, y0), (x1, y1) = MARKER[0]
-    return [
-        testing.make_frame(
+    frames = []
+    for i in range(DRAG_FRAMES):
+        sx = (60 + (2 * i if pan else 0)) * k
+        frames.append(testing.make_frame(
             w, h,
             marker_lines=[((x0 * k, y0 * k), ((x1 + 8 * i) * k, (y1 - 5 * i) * k))],
-            scale_texts=[("300m", (60 * k, 170 * k))],
-            scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
-        )
-        for i in range(DRAG_FRAMES)
-    ]
+            scale_texts=[("300m", (sx, 170 * k))],
+            scale_bars=[(sx, 170 * k + 30, 120 * k, 1)],
+        ))
+    return frames
 
 
 def summarize(r) -> tuple:
@@ -506,12 +844,81 @@ def summarize(r) -> tuple:
     )
 
 
-def phase_live(dev: torch.device, card: str) -> dict:
-    """The pipelined live loop at 1080p and 4K, threaded submit off and on,
-    at the 15 FPS cap and uncapped."""
+def _truth(dev: torch.device, frames: list, engine_factory=None) -> dict:
+    """{summary of the synchronous result: frame index} over `frames`."""
+    from smh_tpu.squadex.capture import Frame
+
+    state = new_state(dev, engine=engine_factory() if engine_factory else None)
+    try:
+        truth = {summarize(state.process(Frame(f, 96))): i for i, f in enumerate(frames)}
+    finally:
+        state.close()
+    require(len(truth) == len(frames), f"drag frames are not distinct: {len(truth)}")
+    return truth
+
+
+def _live_run(dev, frames, truth, threaded: bool, fps, want: int, engine_factory=None) -> tuple:
+    """The pipelined VisionLoop over `frames` cycling until `want` updates
+    (at most 120 s) -> (updates as (time, truth index or -1, ms since the
+    loop took that frame), the backend, the launch counts of the run)."""
     from smh_tpu.squadex.capture import CaptureThread, Frame
     from smh_tpu_torch.ops import kernels as K
     from smh_tpu_torch.vision.pipeline import VisionLoop
+
+    ids = {id(f): i for i, f in enumerate(frames)}
+    t_take, t_up = {}, []
+
+    class Cycle:
+        def __init__(self):
+            self.i = 0
+
+        def grab(self):
+            self.i += 1
+            return Frame(frames[self.i % len(frames)], 96)
+
+    def on_update(r, _debug):
+        now = time.perf_counter()
+        i = truth.get(summarize(r) if r is not None else None, -1)
+        t_up.append((now, i, (now - t_take[i]) * 1e3 if i in t_take else None))
+
+    state = new_state(dev, engine=engine_factory() if engine_factory else None)
+    cap = CaptureThread(Cycle()).start()
+    take = cap.fresh_frame
+
+    def fresh_frame():
+        f = take()
+        if f is not None:
+            t_take[ids[id(f.image)]] = time.perf_counter()
+        return f
+
+    cap.fresh_frame = fresh_frame
+    loop = VisionLoop(state, cap, on_update, fps=fps or 1e6, pipelined=True, threaded_submit=threaded)
+    K.reset_launches()
+    loop.start()
+    try:
+        deadline = time.time() + 120
+        while len(t_up) < want and time.time() < deadline:
+            time.sleep(0.01)
+    finally:
+        loop.stop()
+        cap.stop()
+        state.close()
+    torch.cuda.synchronize()
+    return t_up, state.delegate.backend, dict(K.LAUNCHES)
+
+
+def _steady(t_up: list, want: int) -> tuple:
+    """(fps, [frame -> update ms]) over the window before stop(): stopping
+    drains the pending frames in a burst, and the first 4 are warm-up."""
+    steady = t_up[4:want]
+    return (len(steady) - 1) / (steady[-1][0] - steady[0][0]), [ms for _, _, ms in steady]
+
+
+def phase_live(dev: torch.device, card: str) -> dict:
+    """The pipelined live loop at 1080p and 4K, threaded submit off and on,
+    at the 15 FPS cap and uncapped."""
+    from smh_tpu.squadex.capture import Frame
+    from smh_tpu_torch.ops import kernels as K
 
     launches = {name: 0 for name in K.LAUNCHES}
     table = []
@@ -520,12 +927,7 @@ def phase_live(dev: torch.device, card: str) -> dict:
     try:
         for w, h in LIVE_SIZES:
             frames = drag_frames(w, h)
-            state = new_state(dev)
-            try:
-                truth = {summarize(state.process(Frame(f, 96))): i for i, f in enumerate(frames)}
-            finally:
-                state.close()
-            require(len(truth) == DRAG_FRAMES, f"drag frames are not distinct: {len(truth)}")
+            truth = _truth(dev, frames)
 
             # The submit half queues on the stream without a host sync: a
             # full upload on a fresh backend, then two deltas.
@@ -553,49 +955,9 @@ def phase_live(dev: torch.device, card: str) -> dict:
 
             for threaded in (False, True):
                 for fps, want in LIVE_UPDATES:
-                    ids = {id(f): i for i, f in enumerate(frames)}
-                    t_take = {}
-                    t_up = []  # (time, frame index or -1, ms since the loop took that frame)
-
-                    class Cycle:
-                        def __init__(self):
-                            self.i = 0
-
-                        def grab(self):
-                            self.i += 1
-                            return Frame(frames[self.i % DRAG_FRAMES], 96)
-
-                    def on_update(r, _debug):
-                        now = time.perf_counter()
-                        i = truth.get(summarize(r) if r is not None else None, -1)
-                        t_up.append((now, i, (now - t_take[i]) * 1e3 if i in t_take else None))
-
-                    state = new_state(dev)
-                    cap = CaptureThread(Cycle()).start()
-                    take = cap.fresh_frame
-
-                    def fresh_frame():
-                        f = take()
-                        if f is not None:
-                            t_take[ids[id(f.image)]] = time.perf_counter()
-                        return f
-
-                    cap.fresh_frame = fresh_frame
-                    loop = VisionLoop(
-                        state, cap, on_update, fps=fps or 1e6, pipelined=True, threaded_submit=threaded,
-                    )
-                    K.reset_launches()
                     n_err = len(errors.messages)
-                    loop.start()
-                    try:
-                        deadline = time.time() + 120
-                        while len(t_up) < want and time.time() < deadline:
-                            time.sleep(0.01)
-                    finally:
-                        loop.stop()
-                        cap.stop()
-                    torch.cuda.synchronize()
-                    for name, n in K.LAUNCHES.items():
+                    t_up, be, run = _live_run(dev, frames, truth, threaded, fps, want)
+                    for name, n in run.items():
                         launches[name] += n
                     label = f"{w}x{h} threaded={threaded} fps={'uncapped' if fps is None else int(fps)}"
                     require(len(errors.messages) == n_err, f"{label}: frame errors {errors.messages[n_err:]}")
@@ -603,16 +965,11 @@ def phase_live(dev: torch.device, card: str) -> dict:
                     bad = [i for _, i, _ in t_up if i < 0]
                     require(not bad, f"{label}: {len(bad)} updates outside the truth set")
                     require(len({i for _, i, _ in t_up}) >= DRAG_FRAMES // 2, f"{label}: low coverage")
-                    require(all(n > 0 for n in K.LAUNCHES.values()), f"{label}: skipped a kernel {K.LAUNCHES}")
-                    be = state.delegate.backend
+                    require(all(run[n] > 0 for n in K.FUSED_PASS), f"{label}: skipped a kernel {run}")
                     st = dict(be.stats)
                     require(st["full_uploads"] == 1 and st["delta_frames"] > 0,
                             f"{label}: not one full upload then deltas: {st}")
-                    # The window before stop(): stopping drains the pending
-                    # frames in a burst. The first 4 updates are warm-up.
-                    steady = t_up[4:want]
-                    rate = (len(steady) - 1) / (steady[-1][0] - steady[0][0])
-                    lat = [ms for _, _, ms in steady]
+                    rate, lat = _steady(t_up, want)
                     row = {
                         "res": f"{w}x{h}", "threaded": threaded,
                         "fps_cap": "uncapped" if fps is None else int(fps),
@@ -627,10 +984,63 @@ def phase_live(dev: torch.device, card: str) -> dict:
                           f"{rate:.2f} fps, frame->update p50 {row['p50_ms']:.2f} ms p90 {row['p90_ms']:.2f} ms, "
                           f"H2D {row['h2d_bytes_per_delta_frame']:.0f} B per delta frame "
                           f"({st['delta_frames']} deltas, 1 full upload of {be._mirror.size} B), "
-                          f"0 frame errors, launches {dict(K.LAUNCHES)} on {card}", flush=True)
+                          f"0 frame errors, launches {run} on {card}", flush=True)
     finally:
         logging.getLogger("smh_tpu").removeHandler(errors)
     print("live: " + json.dumps(table), flush=True)
+    return launches
+
+
+def phase_live_window(dev: torch.device, card: str) -> dict:
+    """The panning drag, pipelined, threaded and uncapped, with SMH_SPARSE=0
+    and the gray band (a Tesseract-flagged engine): window rungs and band
+    gathers ride the submit half, which must not sync the host."""
+    from smh_tpu.squadex.capture import Frame
+    from smh_tpu_torch.ops import kernels as K
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    want = 60
+    errors = ErrorCount()
+    logging.getLogger("smh_tpu").addHandler(errors)
+    try:
+        with sparse_off():
+            for w, h in LIVE_SIZES:
+                frames = drag_frames(w, h, pan=True)
+                truth = _truth(dev, frames, tesseract_flagged)
+                state = new_state(dev, engine=tesseract_flagged())
+                try:
+                    state.process(Frame(frames[0], 96))
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        for f in frames[1:4]:
+                            job = state.submit(Frame(f, 96))
+                            require(job is not None, "submit failed (see the log)")
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    flags = job["job"]._dispatch_flags
+                    require(flags.sparse is None and flags.inline == "gray" and flags.band is not None,
+                            f"not the window + gray band route: {flags}")
+                finally:
+                    state.close()
+
+                t_up, be, run = _live_run(dev, frames, truth, True, None, want, tesseract_flagged)
+                for name, n in run.items():
+                    launches[name] += n
+                label = f"{w}x{h} SMH_SPARSE=0 gray band"
+                require(not errors.messages, f"{label}: frame errors {errors.messages}")
+                require(len(t_up) >= want, f"{label}: {len(t_up)} updates in 120 s")
+                require(all(i >= 0 for _, i, _ in t_up), f"{label}: updates outside the truth set")
+                require(be._dispatch_flags.inline == "gray", f"{label}: the scales left the gray band: {be._dispatch_flags}")
+                st = dict(be.stats)
+                rate, lat = _steady(t_up, want)
+                print(f"live: {label}, threaded, uncapped: {len(t_up)} updates all in the truth set, "
+                      f"{rate:.2f} fps, frame->update p50 {percentile(lat, 0.5):.2f} ms "
+                      f"p90 {percentile(lat, 0.9):.2f} ms, window misses {st['lsd_window_misses']}, "
+                      f"band misses {st['scales_band_misses']}, scalespack fetches {st['scalespack_fetches']}; "
+                      f"the submit half raised no sync under 'error'; launches {run} on {card}",
+                      flush=True)
+    finally:
+        logging.getLogger("smh_tpu").removeHandler(errors)
     return launches
 
 
@@ -675,7 +1085,7 @@ def phase_app(dev: torch.device) -> dict:
     require(not app.loop._thread.is_alive() and not app.capture._thread.is_alive(), "the app did not stop")
     be = app.state.delegate.backend
     require(be.name == "cuda" and be.device.type == "cuda", "the app did not run the CUDA backend")
-    require(all(n > 0 for n in K.LAUNCHES.values()), f"the app skipped a kernel: {K.LAUNCHES}")
+    require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"the app skipped a kernel: {K.LAUNCHES}")
     print(f"app: smh_tpu_torch.app.App (synthetic, pipelined, async scales, engine "
           f"{type(app.ocr_engine).__name__}) delivered {len(updates)} updates, markers "
           f"{[(l.p0, l.p1) for l in res.markers]}, stats {be.stats}, launches {dict(K.LAUNCHES)}; "
@@ -703,15 +1113,17 @@ def main() -> int:
           f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})", flush=True)
 
     kernels = phase_kernels(dev)
+    kernels["ray_march"] = phase_ray_march(dev)
     launches = phase_slice(dev)
-    main_paths = [launches, phase_dense(dev)]
+    main_paths = [launches, phase_dense(dev), phase_transports(dev), phase_debug(dev), phase_device_engine(dev)]
     phase_timing(dev, card)
     phase_loop(dev)
-    main_paths += [phase_live(dev, card), phase_app(dev)]
+    main_paths += [phase_live(dev, card), phase_live_window(dev, card), phase_app(dev)]
     require("jax" not in sys.modules, "the port imported jax")
 
     for name, entry in kernels.items():
         entry["launches"] = sum(p[name] for p in main_paths)
+        require(entry["launches"] > 0, f"no main path launched {name}")
     print(json.dumps({"kernels": list(kernels.values())}))
     print(card)
     print(json.dumps({"ok": True, "device": {

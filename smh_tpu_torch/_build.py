@@ -51,6 +51,9 @@ _SIGNATURES = {
     "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
     # (r, g, b, bits, H, W, params, stream)
     "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP],
+    # (mask, H, W, pts, B, cos, sin, N, max_gap, k_total, end_x, end_y,
+    #  best_x, best_y, best_len, stream)
+    "smh_ray_march": [_VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -8,12 +8,13 @@ the port's backend.
 
 Usage:
   python -m smh_tpu_torch.app --synthetic --pipelined --no-web   # on a CUDA device
+  python -m smh_tpu_torch.app --synthetic --debug-web   # debug telemetry + /api/debug-view
   python -m smh_tpu_torch.app --synthetic --backend numpy --device cpu   # the numpy oracle, no card
   python -m smh_tpu_torch.app --image frame.png --device cuda:1
   python -m smh_tpu_torch.app --list-maps --paks ... --ripper .. # heightmap tools
 
-Not ported yet: --worker (the pipeline in a worker process) and --debug-web
-(its debug views); both exit with a message.
+Not ported yet: --worker (the pipeline in a worker process); it exits with
+a message.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ log = logging.getLogger(__name__)
 
 NOT_PORTED = {
     "worker": "--worker (the vision pipeline in a worker process) is not ported to the CUDA backend yet",
-    "debug_web": "--debug-web (debug telemetry and views) is not ported to the CUDA backend yet",
 }
 
 
@@ -52,12 +52,16 @@ class App(_app.App):
     ) -> None:
         if worker:
             raise NotImplementedError(NOT_PORTED["worker"])
-        if debug_web:
-            raise NotImplementedError(NOT_PORTED["debug_web"])
-        super().__init__(source, settings=settings, pipelined=pipelined, scales_async=scales_async, **kwargs)
+        super().__init__(
+            source, settings=settings, pipelined=pipelined, scales_async=scales_async,
+            debug_web=debug_web, **kwargs,
+        )
         jax_state = self.state
+        # --debug-web collects the per-frame OCR boxes and scale overlays, and
+        # joins the scales branch every frame, as smh_tpu's App does.
         self.state = VisionState(
-            settings=self.settings, ocr_engine=self.ocr_engine, scales_async=scales_async, device=device
+            settings=self.settings, ocr_engine=self.ocr_engine, device=device,
+            collect_debug_overlays=debug_web, scales_async=scales_async and not debug_web,
         )
         jax_state.close()
         self.loop = VisionLoop(self.state, self.capture, self._on_update, pipelined=pipelined)
@@ -87,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
              "frame's result processing",
     )
     ap.add_argument("--worker", action="store_true", help="not ported to the CUDA backend yet")
-    ap.add_argument("--debug-web", action="store_true", help="not ported to the CUDA backend yet")
+    ap.add_argument("--debug-web", action="store_true",
+                    help="broadcast debug telemetry to web clients (event id 100): "
+                         "per-frame timeshares, OCR boxes and scale overlays")
     ap.add_argument("--sync-scales", action="store_true",
                     help="join the scales branch every frame like the reference "
                          "(default: async — markers publish immediately, the ratio "
@@ -161,7 +167,7 @@ def main(argv=None) -> int:
     app = App(
         _app._build_source(args), settings=settings, device=args.device, port=args.port,
         serve=not args.no_web, pipelined=args.pipelined, scales_async=not args.sync_scales,
-        paks=args.paks, aes=args.aes, ripper_exe=args.ripper, cache_dir=args.cache_dir,
+        debug_web=args.debug_web, paks=args.paks, aes=args.aes, ripper_exe=args.ripper, cache_dir=args.cache_dir,
     )
 
     if args.heightmap:

@@ -1,5 +1,6 @@
-"""The port's three hand-written CUDA kernels, their wrappers, their plain
-PyTorch twins and their launch counts.
+"""The fused pass's three hand-written CUDA kernels, their wrappers, their
+plain PyTorch twins, and the launch counts of all four of the port's kernels
+(the fourth, the ray march, lives in ops/lsd.py).
 
 Counterpart of smh_tpu/ops/pallas_kernels.py. Each wrapper takes the plain
 version for tensors on the CPU, launches its kernel for tensors on a CUDA
@@ -41,7 +42,10 @@ from smh_tpu import consts as C
 
 from .. import _build
 
-LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0}
+LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0}
+# The kernels every fused pass launches (ray_march runs on the
+# lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march).
+FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask")
 
 # Rows per block of the quiet-walk kernel (TH in csrc/quiet_walk.cu): the
 # tile seams the tests and the chip smoke place their heights around.

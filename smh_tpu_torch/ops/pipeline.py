@@ -1,15 +1,21 @@
 """The fused per-frame pass in PyTorch.
 
-Port of smh_tpu/ops/pipeline.py (the `channels=3` plane-major flat upload,
-full-plane crop, `scales_inline` "device" or "none", sparse mask transport
-on or off). One call of `analyze_packed_flat` runs the whole device half of
+Port of smh_tpu/ops/pipeline.py (the `channels=3` plane-major flat upload;
+the LSD mask as a window crop, the full plane or sparse words; the scales
+transports "none", "device", "binary" and "gray", the last two whole or as
+a row band). One call of `analyze_packed_flat` runs the whole device half of
 a frame: marker classify + luma (CUDA kernel 1), the L1 dilate, the dilated
 mask's bit plane (CUDA kernel 3), the OCR preprocess and scales binarize of
 the map's bottom-right quadrant, the minimap rect (CUDA kernel 2), the red
-gate, the on-device scales read, the mask bbox, the sparse word compaction
-and the checksums — all packed into ONE u8 hostpack whose bytes equal the
-JAX package's hostpack. `analyze_delta_flat` first rebuilds the frame from
-a device-resident buffer and the changed 32 B chunks (the delta upload).
+gate, the on-device scales read, the mask bbox, the window crop or sparse
+word compaction and the checksums — all packed into ONE u8 hostpack whose
+bytes equal the JAX package's hostpack. `analyze_delta_flat` first rebuilds
+the frame from a device-resident buffer and the changed 32 B chunks (the
+delta upload). `analyze_map_planar` is the debug re-pass, which also keeps
+the isolated marker pixels and the cropped quadrant.
+
+The window and band origins are device scalars: both are cut by a gather at
+origin + iota (scales_device._window), never by slicing at a host int.
 
 On a CUDA tensor the three kernels launch; on a CPU tensor their plain twins
 run (ops/kernels.py). Nothing here reads a tensor's value on the host or
@@ -310,8 +316,11 @@ def _analyze_map_planes(
     grayscale: bool,
     with_ocr: bool = True,
     with_quiet: bool = True,
+    with_isolated: bool = False,
 ) -> dict:
-    """The fused pass over the map ROI as BGR channel planes ([h, w] each)."""
+    """The fused pass over the map ROI as BGR channel planes ([h, w] each).
+    with_isolated adds the debug views' planes: the map with non-marker
+    pixels black and the bottom-right quadrant, both interleaved RGB."""
     map_h, map_w = b8.shape
     marker_u8, luma = kernels.classify_luma_planes(r8, g8, b8)
     marker = marker_u8 != 0
@@ -342,7 +351,19 @@ def _analyze_map_planes(
         out["scales_bits"] = pack_bits(scales_bool)
     if with_quiet:
         out["minimap_rect"] = kernels.minimap_rect_planes(b8[None], g8[None], r8[None])[0]
+    if with_isolated:
+        brq_h, brq_w = map_h // 2, map_w // 2
+        rgb = torch.stack([r8, g8, b8], dim=-1)
+        out["isolated_map"] = torch.where(marker[..., None], rgb, torch.zeros_like(rgb))
+        out["cropped_brq"] = rgb[brq_h : brq_h + brq_h, brq_w : brq_w + brq_w]
     return out
+
+
+def _row_band(plane: torch.Tensor, r0: torch.Tensor, rows: int) -> torch.Tensor:
+    """plane[r0 : r0 + rows] for a device-scalar r0 (in range by
+    construction), as a gather: no host sync."""
+    zero = torch.zeros_like(r0)
+    return sd._window(plane, r0.reshape(1), zero.reshape(1), rows, plane.shape[1])[0]
 
 
 def _pack_outputs(
@@ -353,25 +374,60 @@ def _pack_outputs(
     scales_inline: str = "none",
     sparse_budget: int | None = None,
     templates: torch.Tensor | None = None,
+    crop_h: int | None = None,
+    crop_w: int | None = None,
+    scales_band: int | None = None,
 ) -> dict:
     """Pack every detection-path output into ONE u8 hostpack (layout:
-    hostpack_layout with crop_h = crop_w = None)."""
+    hostpack_layout with the same flags)."""
     lsd_bool = out["lsd_bool"]
+    map_h, map_w = lsd_bool.shape
+    crop_h = map_h if crop_h is None else crop_h
+    crop_w = map_w if crop_w is None else crop_w
     y0, y1, x0, x1 = _mask_bbox(lsd_bool)
-    # Full-plane crop (and the sparse transport): the crop origin is the
-    # plane origin.
-    zero = torch.zeros((), dtype=I64, device=lsd_bool.device)
-    meta = torch.stack([y0, y1, x0, x1, zero, zero]).to(I32)
+    if sparse_budget is not None or (crop_h, crop_w) == (map_h, map_w):
+        # Sparse words or the full plane: the crop origin is the plane
+        # origin, and the full plane's bits are kernel 3's.
+        cy0 = cx0 = torch.zeros((), dtype=I64, device=lsd_bool.device)
+        crop_bits = out["lsd_bits"]
+    else:
+        # Window crop at the bbox less the margin, clamped into the plane.
+        # The origin is a device scalar and not byte aligned, so the window
+        # is gathered from the bool plane and packed afresh.
+        margin = int(LSD_CROP_MARGIN)
+        cy0 = torch.clamp(y0 - margin, 0, map_h - crop_h)
+        cx0 = torch.clamp(x0 - margin, 0, map_w - crop_w)
+        crop_bits = pack_bits(sd._window(lsd_bool, cy0.reshape(1), cx0.reshape(1), crop_h, crop_w)[0])
+    meta = torch.stack([y0, y1, x0, x1, cy0, cx0]).to(I32)
     parts = [_bytes(red.reshape(1)), _u32_bytes(out["ui_check"]), _bytes(meta)]
+    banded = with_ocr and scales_inline in ("binary", "gray") and scales_band is not None
     if with_ocr:
         scheck = torch.cat([_weighted_check(out["scales_bits"]), _weighted_check(out["ocr_img"])])
         parts.append(_u32_bytes(scheck))
-        if scales_inline == "device":
+        keep = out["ocr_img"] < OCR_BINARY_THRESHOLD  # the text mask
+        if banded:
+            # OCR text-row band: every text pixel lies in the keep mask's row
+            # bbox and the bar scan reads at most scales_scan_budget rows
+            # below it, so a band anchored at the bbox is read-complete.
+            brq_h = keep.shape[0]
+            krows = keep.any(dim=1)
+            oy0 = sd._first_true(krows)
+            oy1 = brq_h - sd._first_true(krows.flip(0))
+            b0 = torch.clamp(oy0, 0, brq_h - scales_band)
+            parts.append(_bytes(torch.stack([oy0, oy1, b0]).to(I32)))
+            parts.append(_row_band(out["scales_bits"], b0, scales_band).reshape(-1))
+            if scales_inline == "binary":
+                parts.append(_row_band(pack_bits(keep), b0, scales_band).reshape(-1))
+            else:
+                parts.append(_row_band(out["ocr_img"], b0, scales_band).reshape(-1))
+        elif scales_inline == "binary":
+            parts += [out["scales_bits"].reshape(-1), pack_bits(keep).reshape(-1)]
+        elif scales_inline == "gray":
+            parts += [out["scales_bits"].reshape(-1), out["ocr_img"].reshape(-1)]
+        elif scales_inline == "device":
             if templates is None:
                 raise ValueError('scales_inline="device" needs the template tensor')
-            rec = sd.scales_records(
-                out["ocr_img"] < OCR_BINARY_THRESHOLD, out["scales_bool"], templates
-            )
+            rec = sd.scales_records(keep, out["scales_bool"], templates)
             parts.append(_bytes(rec))
         elif scales_inline != "none":
             raise ValueError(f"unsupported scales_inline {scales_inline!r}")
@@ -381,14 +437,15 @@ def _pack_outputs(
         nz, sp_idx, sp_dat = _sparse_words(lsd_bool, sparse_budget)
         parts += [_bytes(nz.to(I32).reshape(1)), _bytes(sp_idx.to(I32)), _u32_bytes(sp_dat)]
     else:
-        parts.append(out["lsd_bits"].reshape(-1))
+        parts.append(crop_bits.reshape(-1))
     res = {
         "hostpack": torch.cat(parts),
         "ui": out["ui"],
-        "lsd_bits": out["lsd_bits"],  # full mask: the sparse-miss fallback
+        "lsd_bits": out["lsd_bits"],  # full mask: the window/sparse-miss fallback
     }
-    if with_ocr:
-        # The lazy transport's payload and the device read's overflow fallback.
+    if with_ocr and (scales_inline in ("none", "device") or banded):
+        # The lazy transport's payload, and the fallback of the band (a miss)
+        # and of the device read (overflow with nothing trusted).
         res["scalespack"] = torch.cat([out["scales_bits"].reshape(-1), out["ocr_img"].reshape(-1)])
     return res
 
@@ -405,6 +462,9 @@ def analyze_packed_flat(
     scales_inline: str = "none",
     sparse_budget: int | None = None,
     templates: torch.Tensor | None = None,
+    crop_h: int | None = None,
+    crop_w: int | None = None,
+    scales_band: int | None = None,
 ) -> dict:
     """The full-upload dispatch: one flat u8 buffer holding the map ROI as
     PLANE-MAJOR BGR (B, G, R planes) followed by the interleaved-BGR button
@@ -422,7 +482,8 @@ def analyze_packed_flat(
     )
     return _pack_outputs(
         out, _red_gate_roi(btn), with_ocr, with_quiet, scales_inline,
-        sparse_budget=sparse_budget, templates=templates,
+        sparse_budget=sparse_budget, templates=templates, crop_h=crop_h,
+        crop_w=crop_w, scales_band=scales_band,
     )
 
 
@@ -450,6 +511,24 @@ def analyze_delta_flat(
     return out
 
 
+def analyze_map_planar(planes: torch.Tensor, grayscale: bool = True, with_isolated: bool = False) -> dict:
+    """The fused pass over a plane-major BGR u8 [3, h, w] map ROI (the
+    resident layout): the debug re-pass reads the resident buffer with no
+    layout copy. The JAX counterpart is smh_tpu.ops.pipeline.analyze_map_planar."""
+    return _analyze_map_planes(
+        planes[0], planes[1], planes[2], grayscale, with_quiet=False, with_isolated=with_isolated,
+    )
+
+
+def unpack_bits_device(packed: torch.Tensor, w: int) -> torch.Tensor:
+    """Device-side inverse of pack_bits -> 0/255 u8 [h, w]: the u8 mask the
+    device ray march samples, rebuilt from the bit plane."""
+    h, row = packed.shape
+    shifts = 7 - torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(h, row * 8)[:, :w] * 255
+
+
 # ---------------------------------------------------------------------------
 # Host helpers (jax-free copies of smh_tpu/ops/pipeline.py)
 # ---------------------------------------------------------------------------
@@ -460,6 +539,16 @@ def unpack_bits_host(packed, w: int):
     import numpy as np
 
     return np.unpackbits(packed, axis=1)[:, :w]
+
+
+def binary_ocr_image_host(keep_bits, w: int):
+    """The 0/255 OCR image from the bit-packed text mask: the host side of
+    the binary transport (exact for binary_ok engines, which only evaluate
+    `gray < OCR_BINARY_THRESHOLD`)."""
+    import numpy as np
+
+    keep = unpack_bits_host(keep_bits, w)
+    return np.where(keep != 0, np.uint8(0), np.uint8(255))
 
 
 def bbox_crop_host(bits, bbox, origin, shape):

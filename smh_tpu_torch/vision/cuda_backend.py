@@ -17,38 +17,60 @@ Implements the consume surface VisionState._process uses
   * snapshot_job freezes the dispatched frame as a consume view, so the
     pipelined VisionLoop can submit frame N+1 while frame N is consumed;
   * crop_to_map waits on that frame's event only, then parses the hostpack:
-    red gate, checksums, the sparse (or full-plane) LSD mask, the
-    device-read scale records and the minimap rect;
+    red gate, checksums, the LSD mask (sparse words, a window crop or the
+    full plane; a sparse or window miss fetches the full bit plane), the
+    scales sections (device-read records, or the binary / gray images whole
+    or as a row band) and the minimap rect, and steps the transport ladders
+    (sparse budget, 2-D window rungs, band rungs, inline -> checksum-only);
   * the markers come from the native host LSD (`native.find_lines`) on the
-    bbox slice of the reconstructed mask; the scale ratio from the decoded
-    records, or — for engines that do not read on device, or a device read
-    that lost structure — from the host engine over the lazily fetched
-    scalespack (snapshot_scales_job hands the same to the async scales
-    step).
+    bbox slice of the reconstructed mask, or with lsd_engine="cuda" from
+    the host seed scan over the device ray march (ops/lsd.py, CUDA kernel
+    4); the scale ratio from the decoded records, the inline images, or the
+    lazily fetched scalespack (snapshot_scales_job hands the same to the
+    async scales step);
+  * set_debug(True) adds a debug re-pass that keeps the intermediates
+    get_debug_view serves.
 
-Not ported yet: the window-crop rungs, the binary/gray/band scales
-transports, debug views and the device ray march.
+The transport choice is smh_tpu's TpuBackend's: sparse words unless
+SMH_SPARSE=0 or dense content made them step aside, else the window
+ladder; "device" scales for engines the device read replaces, else
+"binary" (binary_ok engines) or "gray", banded for image-derived engines,
+and "none" once the scales checksum is stable.
 """
 
 from __future__ import annotations
 
 import copy
+import math
 import os
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from smh_tpu import consts as C
 from smh_tpu import native
+from smh_tpu.geometry import Line, Point
+from smh_tpu.vision import lsd
+from smh_tpu.vision.reference import DebugView
 
 from .. import resolve_device
+from ..ops import lsd as ops_lsd
 from ..ops import pipeline as ops_pipeline
 from ..ops import scales_device as ops_scales_device
 
-# Maps whose full bit-mask is at most this many bytes skip the sparse
-# transport (tiny frames: the full plane is already small).
+# Maps whose full bit-mask is at most this many bytes skip the windowing
+# and sparse transports (tiny frames: the full plane is already small).
 _MIN_WINDOWED_MASK_BYTES = 16 * 1024
+# Extra headroom the next frame's window must have over this frame's bbox
+# (marker lines grow under the player's drag).
+_RUNG_SLACK = 64
+# The OCR text band shrinks after a short stable streak (scale-label text
+# height is fixed UI chrome; a wrong guess costs one fallback fetch).
+_BAND_SHRINK_AFTER = 5
+# Consecutive unchanged scales checksums before the scales/OCR images drop
+# out of the inline hostpack (static map -> checksum-only transport).
+_INLINE_STABLE_AFTER = 3
 
 # -- delta upload (copy of smh_tpu/vision/tpu_backend.py) ------------------------
 # The flat ROI buffer stays on the device; a frame uploads only the 32 B
@@ -74,6 +96,69 @@ _SP_SLACK_NUM, _SP_SLACK_DEN = 5, 4  # escalate when nz * 5/4 > budget
 _SP_OFF_AFTER = 3  # consecutive misses before sparse steps aside
 _SP_WARM_MAX = _SP_RUNG_DEFAULT + 2  # highest rung proactive escalation reaches
 _SHRINK_AFTER = 30  # fitting frames before a rung shrinks / probation length
+
+
+def _sparse_mode() -> bool:
+    return os.environ.get("SMH_SPARSE", "1") != "0"
+
+
+def _dim_ladder(dim: int) -> list[int]:
+    """Window rungs for one dimension: 1/16, 1/8, 1/4, 1/2, 3/4, full.
+    Height and width adapt independently."""
+    return [
+        max(1, dim // 16), max(1, dim // 8), max(1, dim // 4),
+        max(1, dim // 2), max(1, (dim * 3) // 4), dim,
+    ]
+
+
+_RUNG_HALF = 3  # ladder index of the dim//2 rung (the starting window)
+
+
+def _rung_for(ladder: list[int], need: int) -> int:
+    for i, d in enumerate(ladder):
+        if d >= need:
+            return i
+    return len(ladder) - 1
+
+
+# -- inline scales images (jax-free copies of smh_tpu/vision/tpu_backend.py) --
+
+
+def _paste_band(band_img: np.ndarray, brq_h: int, b0: int, fill: int) -> np.ndarray:
+    """Row band -> full-height canvas. Exact: every pixel the OCR engine or
+    the bar scan can read lies inside the band."""
+    canvas = np.full((brq_h, band_img.shape[1]), np.uint8(fill))
+    canvas[b0 : b0 + band_img.shape[0]] = band_img
+    return canvas
+
+
+def _ocr_image_from_host(host: dict, g) -> Optional[np.ndarray]:
+    """OCR input from the inline hostpack sections; None -> use scalespack."""
+    band = host.get("scales_band")
+    if band == "miss":
+        return None
+    if isinstance(band, tuple) and band[2]:  # textless: all background
+        return np.full((g.brq_h, g.brq_w), np.uint8(255))
+    if "ocr_img_inline" in host:
+        img = host["ocr_img_inline"]
+    elif "ocr_bits_inline" in host:
+        img = ops_pipeline.binary_ocr_image_host(host["ocr_bits_inline"], g.brq_w)
+    else:
+        return None
+    return _paste_band(img, g.brq_h, band[1], 255) if isinstance(band, tuple) else img
+
+
+def _scales_image_from_host(host: dict, g) -> Optional[np.ndarray]:
+    """Scales binarize (0/255) from the inline sections; None -> scalespack."""
+    band = host.get("scales_band")
+    if band == "miss":
+        return None
+    if isinstance(band, tuple) and band[2]:  # textless: nothing readable
+        return np.zeros((g.brq_h, g.brq_w), dtype=np.uint8)
+    if "scales_bits_inline" in host:
+        img = ops_pipeline.unpack_bits_host(host["scales_bits_inline"], g.brq_w) * np.uint8(255)
+        return _paste_band(img, g.brq_h, band[1], 0) if isinstance(band, tuple) else img
+    return None
 
 
 def _delta_bucket(n: int, n_chunks: int) -> Optional[int]:
@@ -108,37 +193,75 @@ def _pack_rois_bgr(
 
 
 class _AdaptState:
-    """Cross-frame transport adaptation + display caches (the fields of
-    smh_tpu's _AdaptState this backend uses: the sparse rung ladder and the
-    ui-map cache), SHARED by reference between the backend and its consume
-    views (snapshot_job), so a rung escalated while consuming frame N shapes
-    frame N+1's dispatch. Every write is a single int or ref, atomic under
-    the GIL."""
+    """Cross-frame transport adaptation + display caches (smh_tpu's
+    _AdaptState without the relay's chain-depth counters), SHARED by
+    reference between the backend and its consume views (snapshot_job), so
+    a rung escalated while consuming frame N shapes frame N+1's dispatch.
+    Every write is a single int or ref, atomic under the GIL."""
 
     __slots__ = (
-        "ui_check", "ui_map_cache",
+        "ui_check", "ui_map_cache", "ladder_h", "ladder_w",
+        "rung_h", "rung_w", "shrink_streak",
         "sp_rung", "sp_streak", "sp_miss_streak", "sp_probation",
+        "scales_inline", "scales_last_check", "scales_stable",
+        "band_rung", "band_streak", "band_probation",
     )
 
     def __init__(self) -> None:
         self.ui_check: Optional[tuple] = None
         self.ui_map_cache: Optional[np.ndarray] = None
+        # The 2-D window rung ladder (per dimension, built per geometry).
+        self.ladder_h: Optional[list[int]] = None
+        self.ladder_w: Optional[list[int]] = None
+        self.rung_h = _RUNG_HALF  # start at the 1/2 window
+        self.rung_w = _RUNG_HALF
+        self.shrink_streak = 0
+        # The sparse word-budget rung ladder.
         self.sp_rung = _SP_RUNG_DEFAULT
         self.sp_streak = 0  # comfortably-fitting frames (shrink hysteresis)
         self.sp_miss_streak = 0  # consecutive misses (dense-content detector)
         self.sp_probation = 0  # frames since sparse stepped aside
+        # Adaptive inline transport of the scales/OCR images.
+        self.scales_inline = True
+        self.scales_last_check = None
+        self.scales_stable = 0
+        # The OCR text-row band rung ladder over brq_h.
+        self.band_rung = _RUNG_HALF
+        self.band_streak = 0
+        self.band_probation = 0
+
+
+class _Flags(NamedTuple):
+    """What one dispatch packed (the hostpack layout's inputs)."""
+
+    with_ocr: bool
+    with_quiet: bool
+    grayscale: bool
+    inline: str  # scales transport: none | device | binary | gray
+    sparse: Optional[int]  # word budget, or None
+    crop_h: Optional[int]  # window (None, None = full plane)
+    crop_w: Optional[int]
+    band: Optional[int]  # OCR row band height, or None
 
 
 class CudaBackend:
     name = "cuda"
 
-    def __init__(self, device="cuda") -> None:
+    def __init__(self, device="cuda", lsd_engine: str = "native") -> None:
         """device: "cuda" / "cuda:N" runs the CUDA kernels; "cpu" runs their
-        plain PyTorch versions. Raises when CUDA is asked for and absent, and
-        when the native host module (pack/diff and the LSD) is unavailable."""
+        plain PyTorch versions. lsd_engine: "native" (the C++ host march;
+        "auto" means it, since the port requires the native module) or
+        "cuda" (the device ray march, kernel 4, batched over seeds). Raises
+        when CUDA is asked for and absent, and when the native host module
+        (pack/diff and the LSD) is unavailable."""
         self.device = resolve_device(device)
         if not native.available():
             raise RuntimeError("CudaBackend needs the native host module (pack/diff, find_lines)")
+        if lsd_engine == "auto":
+            lsd_engine = "native"
+        if lsd_engine not in ("native", "cuda"):
+            raise ValueError(f"unknown lsd_engine {lsd_engine!r}")
+        self.lsd_engine = lsd_engine
         self._templates = ops_scales_device.templates_to_device(
             ops_scales_device.device_templates(), self.device
         )
@@ -150,8 +273,10 @@ class CudaBackend:
         self._scalespack_host: Optional[np.ndarray] = None
         self._lsd_crop_host: Optional[np.ndarray] = None  # u8 0/255 crop
         self._lsd_offset: tuple[int, int] = (0, 0)  # (x, y) of crop in map
+        self._march_max_len: Optional[float] = None  # bbox diagonal bound
+        self._debug = False
         self._grayscale = True
-        self._dispatch_flags: tuple = (True, True, True, "none", None)
+        self._dispatch_flags = _Flags(True, True, True, "none", None, None, None, None)
         self._adapt = _AdaptState()
         self.stats = {
             "lsd_window_misses": 0,
@@ -187,14 +312,18 @@ class CudaBackend:
         self._dirty_scratch: Optional[np.ndarray] = None  # native diff bitmap
         # Set per frame by VisionState._prepare.
         self.scales_enabled = True  # off: heightmap mode or no OCR engine
+        self.scales_binary_ok = False  # engine only thresholds: bit-packed OCR mask
+        self.scales_image_derived = False  # engine reads pixels: the row band is exact
         self.scales_device_ok = False  # engine replaceable by the device read
         self.quiet_enabled = True  # minimap cadence
 
     # -- lifecycle -------------------------------------------------------------
 
     def set_debug(self, enabled: bool) -> None:
-        if enabled:
-            raise NotImplementedError("debug views are not ported to the CUDA backend yet")
+        """When enabled, crop_to_map also runs the debug re-pass that keeps
+        the intermediates get_debug_view serves (extra device work and
+        fetches), and the scales band is off."""
+        self._debug = enabled
 
     def thread_ctx(self) -> None:
         """No-op: every tensor and launch names its device explicitly."""
@@ -219,6 +348,8 @@ class CudaBackend:
         h, w = frame_bgra.shape[:2]
         if self.geom is None or (self.geom.frame_w, self.geom.frame_h) != (w, h):
             self.geom = C.map_geometry(w, h)
+            self._adapt.ladder_h = None
+            self._adapt.ladder_w = None
             self._resident = None  # resolution change: restart the chain
             self._mirror = None
             self._pack_pool.clear()
@@ -306,12 +437,57 @@ class CudaBackend:
         assert self.frame_np is not None
         return self.frame_np
 
-    # -- sparse rung ladder ------------------------------------------------------
+    # -- window, sparse and band ladders -------------------------------------------
+
+    def _crop_size(self) -> tuple[Optional[int], Optional[int]]:
+        """The static LSD window for the next dispatch (None, None = full)."""
+        a = self._adapt
+        g = self.geom
+        mask_bytes = g.map_h * ((g.map_w + 7) // 8)
+        if mask_bytes <= _MIN_WINDOWED_MASK_BYTES:
+            return None, None
+        if a.ladder_h is None:
+            a.ladder_h = _dim_ladder(g.map_h)
+            a.ladder_w = _dim_ladder(g.map_w)
+            a.rung_h = min(a.rung_h, len(a.ladder_h) - 1)
+            a.rung_w = min(a.rung_w, len(a.ladder_w) - 1)
+        ch = a.ladder_h[a.rung_h]
+        cw = a.ladder_w[a.rung_w]
+        if (ch, cw) == (g.map_h, g.map_w):
+            return None, None
+        return ch, cw
+
+    def _adapt_rung(self, bh: int, bw: int) -> None:
+        """Escalate immediately, shrink after a sustained streak; height and
+        width adapt independently under one shared streak counter."""
+        a = self._adapt
+        if a.ladder_h is None:
+            return
+        pad = 2 * ops_pipeline.LSD_CROP_MARGIN + _RUNG_SLACK
+        want_h = _rung_for(a.ladder_h, bh + pad)
+        want_w = _rung_for(a.ladder_w, bw + pad)
+        if want_h > a.rung_h or want_w > a.rung_w:
+            a.rung_h = max(a.rung_h, want_h)
+            a.rung_w = max(a.rung_w, want_w)
+            a.shrink_streak = 0
+        elif want_h < a.rung_h or want_w < a.rung_w:
+            a.shrink_streak += 1
+            if a.shrink_streak >= _SHRINK_AFTER:
+                if want_h < a.rung_h:
+                    a.rung_h -= 1
+                if want_w < a.rung_w:
+                    a.rung_w -= 1
+                a.shrink_streak = 0
+        else:
+            a.shrink_streak = 0
 
     def _sparse_budget(self) -> Optional[int]:
-        """Word budget for THIS dispatch, or None for the full-plane mask
-        (tiny maps, or dense content that made sparse step aside).
-        Steps the probation counter: call exactly once per dispatch."""
+        """Word budget for THIS dispatch, or None when sparse is off
+        (SMH_SPARSE=0, tiny maps, or dense content that made it step aside:
+        the window ladder takes over). Steps the probation counter: call
+        exactly once per dispatch."""
+        if not _sparse_mode():
+            return None
         a = self._adapt
         g = self.geom
         mask_bytes = g.map_h * ((g.map_w + 7) // 8)
@@ -364,6 +540,34 @@ class CudaBackend:
         else:
             a.sp_streak = 0
 
+    def _scales_band_size(self) -> tuple[Optional[int], bool]:
+        """Pure query: (OCR row-band height for the next dispatch or None
+        for full, ladder maxed). The probation step is _step_band_probation's."""
+        if not self.scales_image_derived:
+            return None, False  # canned engines: bboxes may point anywhere
+        if self._debug:
+            return None, False  # debug views want the full-height binarize
+        g = self.geom
+        if g.brq_h * ((g.brq_w + 7) // 8) <= 4 * 1024:  # tiny frames: no gain
+            return None, False
+        ladder = _dim_ladder(g.brq_h)
+        band = ladder[min(self._adapt.band_rung, len(ladder) - 1)]
+        if band >= g.brq_h:
+            return None, True
+        return band, False
+
+    def _step_band_probation(self, maxed: bool) -> None:
+        """Once per dispatch: while the band ladder is maxed out, re-probe a
+        smaller band every _SHRINK_AFTER dispatches."""
+        a = self._adapt
+        if not maxed:
+            a.band_probation = 0
+            return
+        a.band_probation += 1
+        if a.band_probation >= _SHRINK_AFTER:
+            a.band_probation = 0
+            a.band_rung = len(_dim_ladder(self.geom.brq_h)) - 2
+
     # -- stages ----------------------------------------------------------------
 
     def dispatch(self, grayscale: Optional[bool] = None) -> None:
@@ -376,9 +580,27 @@ class CudaBackend:
             self._grayscale = grayscale
         g = self.geom
         sparse = self._sparse_budget()
-        inline = "device" if (self.scales_enabled and self.scales_device_ok) else "none"
-        self._dispatch_flags = (
+        if sparse is not None:
+            crop_h = crop_w = None  # the sparse words reconstruct the plane
+        else:
+            crop_h, crop_w = self._crop_size()
+        if not self.scales_enabled:
+            inline = "none"
+        elif self.scales_device_ok:
+            inline = "device"  # records are ~1.2 KB: always inline, no band
+        elif not self._adapt.scales_inline:
+            inline = "none"
+        elif self.scales_binary_ok:
+            inline = "binary"
+        else:
+            inline = "gray"
+        band = None
+        if inline in ("binary", "gray"):
+            band, maxed = self._scales_band_size()
+            self._step_band_probation(maxed)
+        self._dispatch_flags = _Flags(
             self.scales_enabled, self.quiet_enabled, self._grayscale, inline, sparse,
+            crop_h, crop_w, band,
         )
         kw = dict(
             map_h=g.map_h,
@@ -391,6 +613,9 @@ class CudaBackend:
             scales_inline=inline,
             sparse_budget=sparse,
             templates=self._templates,
+            crop_h=crop_h,
+            crop_w=crop_w,
+            scales_band=band,
         )
         pending, self._pending = self._pending, None
         if pending is not None and pending[0] == "delta":
@@ -469,17 +694,19 @@ class CudaBackend:
         if self.geom is None:
             raise RuntimeError("crop_to_map before load_frame")
         g = self.geom
+        a = self._adapt
         if self._results is None or self._grayscale != grayscale:
             self._grayscale = grayscale
             self.dispatch()
-        with_ocr, with_quiet, _, inline, sparse = self._dispatch_flags
+        f = self._dispatch_flags
         host, event = self._fetch
         if event is not None:
             event.synchronize()  # this frame's copy only, not the stream
         pack = host.numpy()  # the one D2H per frame
         layout = ops_pipeline.hostpack_layout(
-            g.map_h, g.map_w, with_ocr=with_ocr, with_quiet=with_quiet,
-            scales_inline=inline, sparse_budget=sparse,
+            g.map_h, g.map_w, with_ocr=f.with_ocr, with_quiet=f.with_quiet,
+            crop_h=f.crop_h, crop_w=f.crop_w, scales_inline=f.inline,
+            scales_band=f.band, sparse_budget=f.sparse,
         )
 
         def sect(name):
@@ -491,63 +718,96 @@ class CudaBackend:
             return None
 
         self.stats["frames"] += 1
-        y0, y1, x0, x1, _cy0, _cx0 = (int(v) for v in sect("lsd_meta").view(np.int32))
+        y0, y1, x0, x1, cy0, cx0 = (int(v) for v in sect("lsd_meta").view(np.int32))
         self._host = {
             "ui_check": tuple(int(v) for v in sect("ui_check").view(np.uint32)),
             "lsd_bbox": (y0, y1, x0, x1),
         }
-        if with_ocr:
-            self._host["scales_check"] = tuple(int(v) for v in sect("scales_check").view(np.uint32))
-            if inline == "device":
+        if f.with_ocr:
+            check = tuple(int(v) for v in sect("scales_check").view(np.uint32))
+            self._host["scales_check"] = check
+            if f.inline == "device":
                 self._host["scales_records"] = ops_scales_device.decode_records(
                     sect("scales_rec").view(np.int16)
                 )
-        if with_quiet:
+            if f.inline in ("binary", "gray"):
+                self._parse_inline_scales(sect, f)
+            # Unchanged checksums (static map) drop the inline images from
+            # later packs; any change brings them back.
+            if check == a.scales_last_check:
+                a.scales_stable += 1
+                if a.scales_stable >= _INLINE_STABLE_AFTER:
+                    a.scales_inline = False
+            else:
+                a.scales_last_check = check
+                a.scales_stable = 0
+                a.scales_inline = True
+        if f.with_quiet:
             self._host["minimap_rect"] = tuple(int(v) for v in sect("minimap_rect").view(np.int32))
 
+        full = {"lsd_offset": (0, 0), "lsd_crop_shape": (g.map_h, g.map_w)}
         if y0 >= y1 or x0 >= x1:  # empty mask
-            self._host["lsd_crop_bits"] = None
-            self._host["lsd_offset"] = (0, 0)
-            self._host["lsd_crop_shape"] = (0, 0)
-            if sparse is not None:
-                self._adapt_sp_rung(int(sect("lsd_nz").view(np.int32)[0]), sparse)
-        else:
-            if sparse is not None:
-                nz = int(sect("lsd_nz").view(np.int32)[0])
-                if nz <= sparse:
-                    # Exact reconstruction of the full bit plane.
-                    bits = ops_pipeline.sparse_mask_host(
-                        nz,
-                        sect("lsd_sp_idx").view(np.int32),
-                        sect("lsd_sp_dat").view(np.uint32),
-                        g.map_h,
-                        g.map_w,
-                    )
-                else:
-                    # Sparse miss: fetch the full bit-mask (one extra copy).
-                    self.stats["lsd_sparse_misses"] += 1
-                    bits = self._results["lsd_bits"].cpu().numpy()
-                self._adapt_sp_rung(nz, sparse)
+            self._host.update(lsd_crop_bits=None, lsd_offset=(0, 0), lsd_crop_shape=(0, 0))
+            self._march_max_len = 0.0
+            if f.sparse is not None:
+                self._adapt_sp_rung(int(sect("lsd_nz").view(np.int32)[0]), f.sparse)
+            elif a.ladder_h is not None:
+                self._adapt_rung(0, 0)
+        elif f.sparse is not None:
+            self._march_max_len = math.hypot(y1 - y0, x1 - x0) + 1.0
+            nz = int(sect("lsd_nz").view(np.int32)[0])
+            if nz <= f.sparse:
+                # Exact reconstruction of the full bit plane.
+                bits = ops_pipeline.sparse_mask_host(
+                    nz, sect("lsd_sp_idx").view(np.int32), sect("lsd_sp_dat").view(np.uint32),
+                    g.map_h, g.map_w,
+                )
             else:
-                bits = sect("lsd_crop").reshape(g.map_h, (g.map_w + 7) // 8)
-            self._host["lsd_crop_bits"] = bits
-            self._host["lsd_offset"] = (0, 0)
-            self._host["lsd_crop_shape"] = (g.map_h, g.map_w)
+                # Sparse miss: fetch the full bit-mask (one extra copy).
+                self.stats["lsd_sparse_misses"] += 1
+                bits = self._results["lsd_bits"].cpu().numpy()
+            self._host.update(lsd_crop_bits=bits, **full)
+            self._adapt_sp_rung(nz, f.sparse)
+        else:
+            m = ops_pipeline.LSD_CROP_MARGIN
+            ch = g.map_h if f.crop_h is None else f.crop_h
+            cw = g.map_w if f.crop_w is None else f.crop_w
+            self._march_max_len = math.hypot(y1 - y0, x1 - x0) + 1.0
+            if cy0 + ch >= min(y1 + m, g.map_h) and cx0 + cw >= min(x1 + m, g.map_w):
+                self._host.update(
+                    lsd_crop_bits=sect("lsd_crop").reshape(ch, (cw + 7) // 8),
+                    lsd_offset=(cx0, cy0),
+                    lsd_crop_shape=(ch, cw),
+                )
+            else:
+                # Window miss: fetch the full bit-mask (one extra copy) and
+                # escalate the rung.
+                self.stats["lsd_window_misses"] += 1
+                self._host.update(lsd_crop_bits=self._results["lsd_bits"].cpu().numpy(), **full)
+            if a.ladder_h is not None:
+                self._adapt_rung(y1 - y0, x1 - x0)
+
+        if self._debug:
+            # Debug views want the intermediates: re-run the pass over this
+            # frame's resident buffer and keep them.
+            planes = self._resident[: g.map_h * g.map_w * 3].view(3, g.map_h, g.map_w)
+            self._results.update(
+                ops_pipeline.analyze_map_planar(planes, grayscale=grayscale, with_isolated=True)
+            )
 
         # The ui map is display-only: a lazy fetcher, reused while the
         # device checksum is unchanged.
         results = self._results
         ui_check_host = self._host["ui_check"]
-        adapt = self._adapt
 
         def fetch_ui_map() -> np.ndarray:
             check = (*ui_check_host, grayscale)
             if (
-                adapt.ui_map_cache is not None
-                and check == adapt.ui_check
-                and adapt.ui_map_cache.shape[:2] == (g.map_h, g.map_w)
+                a.ui_map_cache is not None
+                and check == a.ui_check
+                and a.ui_map_cache.shape[:2] == (g.map_h, g.map_w)
             ):
-                return adapt.ui_map_cache
+                return a.ui_map_cache
             ui = results["ui"].cpu().numpy()
             ui_map = np.empty((g.map_h, g.map_w, 4), dtype=np.uint8)
             if ui.ndim == 2:
@@ -555,11 +815,51 @@ class CudaBackend:
             else:
                 ui_map[..., :3] = ui
             ui_map[..., 3] = 255
-            adapt.ui_check = check
-            adapt.ui_map_cache = ui_map
+            a.ui_check = check
+            a.ui_map_cache = ui_map
             return ui_map
 
         return fetch_ui_map, (g.map_x, g.map_y, g.map_w, g.map_h)
+
+    def _parse_inline_scales(self, sect, f: _Flags) -> None:
+        """The binary/gray scales sections -> self._host, with the band
+        ladder's adaptation. host["scales_band"] is None (full-height
+        images), (band, b0, textless) (a row band at b0), or "miss" (the
+        band was too small: the scalespack serves this frame)."""
+        g = self.geom
+        a = self._adapt
+        brq_row = (g.brq_w + 7) // 8
+        self._host["scales_band"] = None
+        rows = g.brq_h
+        if f.band is not None:
+            rows = f.band
+            oy0, oy1, b0 = (int(v) for v in sect("scales_meta").view(np.int32))
+            if oy0 >= oy1:  # no text pixels: empty canvases are exact
+                self._host["scales_band"] = (f.band, 0, True)
+                return
+            need_end = min(oy1 + ops_pipeline.scales_scan_budget(g.brq_w), g.brq_h)
+            want = _rung_for(_dim_ladder(g.brq_h), need_end - oy0)
+            if b0 + f.band < need_end:
+                # The text rows outgrew the band: fall back to the full
+                # images and escalate straight to the rung that fits.
+                self.stats["scales_band_misses"] += 1
+                a.band_rung = max(a.band_rung + 1, want)
+                a.band_streak = 0
+                self._host["scales_band"] = "miss"
+                return
+            self._host["scales_band"] = (f.band, b0, False)
+            if want < a.band_rung:  # shrink after a streak of small bands
+                a.band_streak += 1
+                if a.band_streak >= _BAND_SHRINK_AFTER:
+                    a.band_rung -= 1
+                    a.band_streak = 0
+            else:
+                a.band_streak = 0
+        self._host["scales_bits_inline"] = sect("scales_bits").reshape(rows, brq_row)
+        if f.inline == "binary":
+            self._host["ocr_bits_inline"] = sect("ocr_bits").reshape(rows, brq_row)
+        else:
+            self._host["ocr_img_inline"] = sect("ocr_img").reshape(rows, g.brq_w)
 
     def minimap_rect(self):
         """Minimap bounds computed on the device in the fused pass, or None
@@ -611,12 +911,18 @@ class CudaBackend:
 
     def ocr_preprocess(self) -> np.ndarray:
         g = self.geom
+        img = _ocr_image_from_host(self._host or {}, g)
+        if img is not None:
+            return img
         off, size = ops_pipeline.scalespack_layout(g.map_h, g.map_w)["ocr_img"]
         return self._fetch_scalespack()[off : off + size].reshape(g.brq_h, g.brq_w)
 
     def find_scales_preprocess(self, scales_start_y: int) -> np.ndarray:
         """The binarized BRQ as 0/255 u8 (bit-unpacked)."""
         g = self.geom
+        img = _scales_image_from_host(self._host or {}, g)
+        if img is not None:
+            return img
         off, size = ops_pipeline.scalespack_layout(g.map_h, g.map_w)["scales_bits"]
         bits = self._fetch_scalespack()[off : off + size].reshape(g.brq_h, (g.brq_w + 7) // 8)
         return ops_pipeline.unpack_bits_host(bits, g.brq_w) * np.uint8(255)
@@ -624,30 +930,42 @@ class CudaBackend:
     def snapshot_scales_job(self) -> Optional[dict]:
         """Self-contained handle for the async scales step: the checksum,
         the device read when it serves this frame (consumed inline), and a
-        fetch closure over THIS frame's scalespack otherwise — safe to run
-        on a worker while later frames dispatch (smh_tpu's
-        TpuBackend.snapshot_scales_job for the port's two transports)."""
+        fetch closure over THIS frame's inline sections, falling back to its
+        scalespack — safe to run on a worker while later frames dispatch
+        (smh_tpu's TpuBackend.snapshot_scales_job)."""
         if self._host is None or "scales_check" not in self._host:
             return None
         g = self.geom
-        host = self._host
+        host = self._host  # crop_to_map replaces it, never mutates it
         stats = self.stats
+        band = host.get("scales_band")
+        textless = isinstance(band, tuple) and band[2]
+        has_inline = "scales_bits_inline" in host and (
+            "ocr_bits_inline" in host or "ocr_img_inline" in host
+        )
         records = host.get("scales_records")
         ratio = ops_scales_device.ratio_from_records(records) if records is not None else None
         serves = records is not None and (records.complete or ratio is not None)
-        # Pin the device scalespack only when the worker will need it.
-        spack_dev = None if serves else self._results.get("scalespack")
+        # Pin the device scalespack only when the worker may need it.
+        needs_fallback = band == "miss" or not (textless or has_inline or serves)
+        spack_dev = self._results.get("scalespack") if needs_fallback else None
 
         def fetch() -> tuple[np.ndarray, np.ndarray]:
-            pack = spack_dev.cpu().numpy()
-            stats["scalespack_fetches"] += 1
-            layout = ops_pipeline.scalespack_layout(g.map_h, g.map_w)
-            so, ss = layout["scales_bits"]
-            oo, os_ = layout["ocr_img"]
-            scales_img = ops_pipeline.unpack_bits_host(
-                pack[so : so + ss].reshape(g.brq_h, (g.brq_w + 7) // 8), g.brq_w
-            ) * np.uint8(255)
-            return pack[oo : oo + os_].reshape(g.brq_h, g.brq_w), scales_img
+            ocr_img = _ocr_image_from_host(host, g)
+            scales_img = _scales_image_from_host(host, g)
+            if ocr_img is None or scales_img is None:
+                if spack_dev is None:
+                    raise RuntimeError("scales fallback needed but no scalespack was kept")
+                pack = spack_dev.cpu().numpy()
+                stats["scalespack_fetches"] += 1
+                layout = ops_pipeline.scalespack_layout(g.map_h, g.map_w)
+                so, ss = layout["scales_bits"]
+                oo, os_ = layout["ocr_img"]
+                scales_img = ops_pipeline.unpack_bits_host(
+                    pack[so : so + ss].reshape(g.brq_h, (g.brq_w + 7) // 8), g.brq_w
+                ) * np.uint8(255)
+                ocr_img = pack[oo : oo + os_].reshape(g.brq_h, g.brq_w)
+            return ocr_img, scales_img
 
         job = {"check": host["scales_check"], "fetch": fetch}
         if records is not None:
@@ -678,6 +996,28 @@ class CudaBackend:
             self._host["lsd_crop_shape"],
         )
 
+    def _full_mask_host(self) -> np.ndarray:
+        """Full-size 0/255 host mask (the LSD_INPUT debug view)."""
+        g = self.geom
+        return ops_pipeline.unpack_bits_host(self._results["lsd_bits"].cpu().numpy(), g.map_w) * np.uint8(255)
+
+    def _lsd_mask_dev(self) -> torch.Tensor:
+        """The u8 0/255 device mask the ray march samples, rebuilt from the
+        bit plane (cached per frame)."""
+        if "lsd_mask" not in self._results:
+            self._results["lsd_mask"] = ops_pipeline.unpack_bits_device(
+                self._results["lsd_bits"], self.geom.map_w
+            )
+        return self._results["lsd_mask"]
+
+    def find_longest_line(self, mask, pt: Point, max_gap: float) -> tuple[Line, float]:
+        return ops_lsd.find_longest_line(self._lsd_mask_dev(), pt, max_gap, max_len=self._march_max_len)
+
+    def _find_longest_lines_batch(self, mask, pts: list, max_gap: float):
+        return ops_lsd.find_longest_lines_batch(
+            self._lsd_mask_dev(), pts, max_gap, max_len=self._march_max_len
+        )
+
     def find_marker_lines(self, max_gap: int) -> list:
         if self._lsd_crop_host is None:
             self.mask_marker_lines()
@@ -685,6 +1025,47 @@ class CudaBackend:
         if crop.size == 0:
             return []
         g = self.geom
-        return native.find_lines(
-            crop, max_gap, full_shape=(g.map_h, g.map_w), offset=self._lsd_offset
+        ox, oy = self._lsd_offset
+        if self.lsd_engine == "native":
+            return native.find_lines(crop, max_gap, full_shape=(g.map_h, g.map_w), offset=(ox, oy))
+        # The device march samples the full device mask, so the seed scan
+        # runs in map coordinates over the crop pasted into a full canvas.
+        if crop.shape == (g.map_h, g.map_w):
+            canvas = crop
+        else:
+            canvas = np.zeros((g.map_h, g.map_w), dtype=np.uint8)
+            canvas[oy : oy + crop.shape[0], ox : ox + crop.shape[1]] = crop
+        return lsd.find_lines(
+            canvas, max_gap, self.find_longest_line,
+            find_longest_lines_batch=self._find_longest_lines_batch,
         )
+
+    # -- debug ------------------------------------------------------------------
+
+    def get_debug_view(self, choice: DebugView) -> Optional[np.ndarray]:
+        """RGBA u8 image of an intermediate (smh_tpu's get_debug_view), or
+        None when this frame did not keep it."""
+        if self._results is None or choice == DebugView.NONE:
+            return None
+
+        def rgba(img: np.ndarray) -> np.ndarray:
+            out = np.empty((*img.shape[:2], 4), dtype=np.uint8)
+            out[..., :3] = img if img.ndim == 3 else img[..., None]
+            out[..., 3] = 255
+            return out
+
+        host = self._host or {}
+        scales_avail = (
+            "scalespack" in self._results or "ocr_img_inline" in host or "ocr_bits_inline" in host
+        )
+        if choice == DebugView.OCR_INPUT:
+            return rgba(self.ocr_preprocess()) if scales_avail else None
+        if choice == DebugView.FIND_SCALES_INPUT:
+            return rgba(self.find_scales_preprocess(0)) if scales_avail else None
+        if choice == DebugView.LSD_INPUT:
+            return rgba(self._full_mask_host())
+        if choice == DebugView.LSD_PREPROCESS and "isolated_map" in self._results:
+            return rgba(self._results["isolated_map"].cpu().numpy())
+        if choice == DebugView.CROPPED_BRQ and "cropped_brq" in self._results:
+            return rgba(self._results["cropped_brq"].cpu().numpy())
+        return None

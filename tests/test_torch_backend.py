@@ -123,20 +123,33 @@ def test_port_falls_back_to_the_host_engine_on_overflow(states):
 
 
 def test_engine_without_device_read_uses_the_scalespack(monkeypatch):
-    """With the device read off, the port ships checksums only and the host
-    engine reads the lazily fetched scalespack (the JAX backend takes its
-    inline transports); markers, ratio and minimap agree."""
+    """With the device read off, smhocr (binary_ok, image-derived) takes the
+    binary band inline, as on the JAX backend; once the scales checksum is
+    stable the pack drops to checksum-only, and a changed scale then reads
+    the lazily fetched scalespack. Markers, ratio, minimap, flags and
+    fetch counts agree at every frame."""
     monkeypatch.setenv("SMH_DEVICE_SCALES", "0")
+    monkeypatch.setenv("SMH_DELTA", "0")
     port = tpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine(), device="cpu")
     ref = jpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine())
     try:
-        frame = _frame()
-        rp, rr = port.process(Frame(frame, 96)), ref.process(Frame(frame, 96))
-        assert _lines(rp) == _lines(rr)
-        assert rp.meters_to_px_ratio == rr.meters_to_px_ratio == pytest.approx(300 / 118)
-        assert rp.minimap_bounds == rr.minimap_bounds
-        be = port.delegate.backend
-        assert be._dispatch_flags[3] == "none" and be.stats["scalespack_fetches"] == 1
+        frames = [_frame()] * (cb._INLINE_STABLE_AFTER + 1) + [
+            _frame(scale_texts=[("900m", (60, 170))])
+        ]
+        inlines, bands = [], []
+        for frame in frames:
+            rp, rr = port.process(Frame(frame, 96)), ref.process(Frame(frame, 96))
+            assert _lines(rp) == _lines(rr)
+            assert rp.meters_to_px_ratio == rr.meters_to_px_ratio
+            assert rp.minimap_bounds == rr.minimap_bounds
+            bp, br = port.delegate.backend, ref.delegate.backend
+            assert bp._dispatch_flags[3] == br._dispatch_flags[6]
+            assert bp._dispatch_flags.band == br._dispatch_flags[7]
+            assert bp.stats == br.stats
+            inlines.append(bp._dispatch_flags[3])
+            bands.append(bp._dispatch_flags.band)
+        assert inlines == ["binary"] * (cb._INLINE_STABLE_AFTER + 1) + ["none"]
+        assert None not in bands[:-1] and bp.stats["scalespack_fetches"] == 1
     finally:
         port.close()
         ref.close()
@@ -181,19 +194,15 @@ def test_pack_rois_fallback_matches_native_pack():
     np.testing.assert_array_equal(native_pack, tb._pack_rois_bgr(mr, br, pad_to=128))
 
 
-def test_debug_views_are_not_ported():
-    be = cb.CudaBackend(device="cpu")
-    be.set_debug(False)
-    with pytest.raises(NotImplementedError):
-        be.set_debug(True)
-
-
 def test_hostpack_layout_used_by_the_backend():
     be = cb.CudaBackend(device="cpu")
     be.scales_device_ok = True
     be.load_frame(_frame())
     assert be.crop_to_map(True) is not None
-    _, _, _, inline, sparse = be._dispatch_flags
-    layout = tpp.hostpack_layout(be.geom.map_h, be.geom.map_w, scales_inline=inline, sparse_budget=sparse)
+    f = be._dispatch_flags
+    layout = tpp.hostpack_layout(
+        be.geom.map_h, be.geom.map_w, crop_h=f.crop_h, crop_w=f.crop_w,
+        scales_inline=f.inline, scales_band=f.band, sparse_budget=f.sparse,
+    )
     assert be._results["hostpack"].numel() == layout["__total__"]
     assert be.minimap_rect() is not None and be.scales_check() is not None

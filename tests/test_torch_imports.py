@@ -40,7 +40,7 @@ def test_import_leaves_jax_out_in_a_subprocess():
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 9 else 0)\n"
+        "sys.exit(1 if bad or len(names) < 10 or 'smh_tpu_torch.ops.lsd' not in names else 0)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120

@@ -116,7 +116,7 @@ def test_build_command_compiles_the_csrc_files_for_sm90a():
     from smh_tpu_torch import _build
 
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"classify_luma.cu", "quiet_walk.cu", "fused_mask.cu"}
+    assert {p.name for p in srcs} == {"classify_luma.cu", "quiet_walk.cu", "fused_mask.cu", "ray_march.cu"}
     assert {p.name for p in _build.headers()} == {"classify.cuh"}
     assert all(p.parent == CSRC for p in srcs)
     objdir = pathlib.Path("obj")
@@ -142,6 +142,7 @@ def test_quiet_tile_height_matches_the_cuda_source():
 def test_sources_note_the_kernels_they_replace():
     assert "_classify_luma_kernel" in (CSRC / "classify_luma.cu").read_text()
     assert "_quiet_walk_kernel_factory" in (CSRC / "quiet_walk.cu").read_text()
+    assert "_march_span" in (CSRC / "ray_march.cu").read_text()
 
 
 def test_classify_launch_counter_untouched_on_cpu():
@@ -150,7 +151,11 @@ def test_classify_launch_counter_untouched_on_cpu():
     kernels.classify_luma_planes(p, p, p)
     kernels.minimap_rect_planes(p[None], p[None], p[None])
     kernels.fused_mask_bits(p, p, p)
-    assert kernels.LAUNCHES == {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0}
+    from smh_tpu_torch.ops import lsd as tlsd
+
+    cos_t, sin_t = tlsd.theta_tables("cpu")
+    tlsd.ray_march(p, torch.tensor([[2.0, 3.0]]), 2, tlsd.SPAN0, cos_t, sin_t)
+    assert kernels.LAUNCHES == {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0}
 
 
 def test_wrappers_reject_bad_inputs():

@@ -218,18 +218,23 @@ def test_snapshot_scales_job_falls_back_to_the_scalespack():
 
 
 def test_snapshot_scales_job_without_device_read(monkeypatch):
-    """An engine without the device read: no records, so no counter, and
-    the worker reads the scalespack."""
+    """An engine without the device read: no records, so no counter; smhocr
+    takes the binary band inline, so the worker's fetch reads the band (the
+    same images as TpuBackend's job) and fetches no scalespack."""
     monkeypatch.setenv("SMH_DEVICE_SCALES", "0")
     state = make_state(scales_async=True)
     try:
         state.process(Frame(FRAMES[0], 96))
         be = state.delegate.backend
+        assert be._dispatch_flags.inline == "binary" and be._dispatch_flags.band is not None
         job = be.snapshot_scales_job()
-        assert set(job) == set(_jax_job(be)) == {"check", "fetch"}
+        want = _jax_job(be)
+        assert set(job) == set(want) == {"check", "fetch"}
+        for got, ref in zip(job["fetch"](), want["fetch"](), strict=True):
+            np.testing.assert_array_equal(got, ref)
         state._scales_future.result(timeout=60)
         r = state.process(Frame(FRAMES[0], 96))
     finally:
         state.close()
     assert r.meters_to_px_ratio == pytest.approx(300 / 118)
-    assert be.stats["scalespack_fetches"] == 1 and be.stats["device_scales_frames"] == 0
+    assert be.stats["scalespack_fetches"] == 0 and be.stats["device_scales_frames"] == 0
