@@ -1,15 +1,20 @@
 """smh_tpu_torch — the PyTorch + CUDA port of smh_tpu for an NVIDIA H100.
 
 The JAX package `smh_tpu` stays the reference; this package runs the live
-frame -> markers + scales path on a CUDA device and imports no JAX:
+frame -> markers + scales path on a CUDA device and imports neither JAX nor
+anything of smh_tpu:
 
   * smh_tpu_torch.ops     — the fused per-frame pass in PyTorch, the on-device
-                            scales read, and the two hand-written CUDA kernels
-                            (csrc/, built by _build.py with nvcc on first use)
-  * smh_tpu_torch.vision  — CudaBackend and the VisionState that selects it
+                            scales read, the device ray march, and the wrappers
+                            of the four hand-written CUDA kernels (csrc/, built
+                            by _build.py with nvcc on first use)
+  * smh_tpu_torch.vision  — CudaBackend, the driver (VisionState, VisionLoop)
+                            that selects it, and the numpy oracle
+  * the host half         — native/ (C++, built with g++ on first use), ocr/,
+                            squadex/, web/, heightmaps/, utils/, consts,
+                            geometry, settings, app, testing: the port's own
+                            copies of smh_tpu's, pinned to them by the tests
 
-Host code that never imported JAX (the native module, the numpy oracle, the
-pipeline loop, the OCR engines, capture) is reused from smh_tpu as it is.
 The device is always explicit: there is no silent fall back from CUDA to
 the CPU.
 """

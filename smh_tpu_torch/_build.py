@@ -47,8 +47,8 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     # (r, g, b, marker, luma, n, params, stream)
     "smh_classify_luma": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP],
-    # (p0, p1, p2, colbits, rowbits, B, H, W, cy, lv, cx, lh, stream)
-    "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # (p0, p1, p2, scratch, out, B, H, W, stream)
+    "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
     # (r, g, b, bits, H, W, params, stream)
     "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP],
     # (mask, H, W, pts, B, cos, sin, N, max_gap, k_total, end_x, end_y,

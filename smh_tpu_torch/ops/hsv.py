@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from smh_tpu import consts as C
+from .. import consts as C
 
 F32 = torch.float32
 

@@ -16,13 +16,14 @@ path went through the kernels.
   __f*_rn intrinsics keep it bit-exact with the oracle (no FMA contraction,
   correctly rounded division).
 * minimap_rect_planes -> csrc/quiet_walk.cu
-  Replaces pallas_kernels.py::_quiet_walk_kernel_factory
-  (_rect_pallas_batched, minimap_rect_pallas_planes). Bound by bytes: the
-  three planes are read once; the 8-neighbour SAD runs from a shared-memory
-  tile with a 1-px halo. The quiet mask never reaches device memory: each
-  block ANDs its column and row partials into [B, W] / [B, H] 3-bit words
-  with atomicAnd (bitwise, so block order cannot matter), and the walks run
-  in PyTorch on those vectors.
+  Replaces pallas_kernels.py::_quiet_walk_kernel_factory and the walk tail
+  of _rect_pallas_batched (minimap_rect_pallas_planes). Bound by bytes (the
+  three planes read once) and, at map sizes, by launch latency. ONE C call
+  returns the i32 [B, 4] rects: it clears a scratch of cleared-bit run words
+  (merged with atomicOr), runs the quiet pass from 64x32 shared-memory tiles,
+  and the last block of each batch element runs the four walks as
+  block-wide index reductions. No PyTorch op runs between the kernel and
+  the result.
 * fused_mask_bits -> csrc/fused_mask.cu
   Replaces pallas_kernels.py::_fused_mask_kernel + _fused_mask_kernel_hbm
   (fused_mask_bits_pallas). Bound by bytes: 3 read per pixel, 1/8 written;
@@ -38,18 +39,17 @@ import ctypes
 
 import torch
 
-from smh_tpu import consts as C
-
-from .. import _build
+from .. import _build, consts as C
 
 LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0}
 # The kernels every fused pass launches (ray_march runs on the
 # lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march).
 FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask")
 
-# Rows per block of the quiet-walk kernel (TH in csrc/quiet_walk.cu): the
-# tile seams the tests and the chip smoke place their heights around.
-QUIET_TILE_H = 8
+# Tile of the quiet-walk kernel (TH rows x TW pixels in csrc/quiet_walk.cu):
+# the seams the tests and the chip smoke place their shapes around.
+QUIET_TILE_H = 32
+QUIET_TILE_W = 64
 # Tile of the fused mask kernel (TH rows x TW pixels in csrc/fused_mask.cu).
 FUSED_TILE_H = 8
 FUSED_TILE_W = 256
@@ -73,6 +73,8 @@ def _check_planes(planes, ndim: int) -> torch.device:
             raise ValueError("planes differ in shape or device")
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {first.device}")
+    if first.device.type == "cuda" and not all(p.is_contiguous() for p in planes):
+        raise ValueError("the kernels read contiguous planes")  # they index from data_ptr()
     return first.device
 
 
@@ -123,57 +125,18 @@ def classify_luma_planes(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor):
 # -- kernel 2: minimap quiet mask + walk reductions -------------------------------
 
 
-def _run_lengths(h: int, w: int) -> tuple[int, int, int, int]:
-    cy, cx = h // 2, w // 2
-    lv = abs(h - cy) // 2 - 1  # vertical run length (left/right candidates)
-    lh = abs(w - cx) // 2 - 1  # horizontal run length (up/down candidates)
-    return cy, lv, cx, lh
-
-
 def minimap_rect_planes_plain(p0, p1, p2) -> torch.Tensor:
-    """Plain PyTorch twin of the quiet-walk kernel + tail: u8 [B, H, W] x3 ->
-    i32 [B, 4] (left, top, right, bottom)."""
+    """Plain PyTorch twin of the quiet-walk kernel: u8 [B, H, W] x3 -> i32
+    [B, 4] (left, top, right, bottom)."""
     from . import pipeline as opp
 
     return opp._minimap_rect(opp._edgy_quiet_planes(p0, p1, p2))
 
 
-def rect_from_bits(colbits: torch.Tensor, rowbits: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """The walk tail on the kernel's [B, W] / [B, H] 3-bit words -> i32 [B, 4]
-    (the bound_gate + walks tail of pallas_kernels._rect_pallas_batched)."""
-    from . import pipeline as opp
-
-    cy, lv, cx, lh = _run_lengths(h, w)
-
-    def bit(v, k):
-        return ((v >> k) & 1) == 1
-
-    def bound_gate(vec, lo, hi, dim):
-        if hi <= lo:
-            return torch.ones_like(vec)
-        if lo < 3 or (hi - 1) > dim - 3:
-            return torch.zeros_like(vec)
-        return vec
-
-    down_run = bound_gate(bit(colbits, 0), cy + 1, cy + 1 + lv, h)
-    up_run = bound_gate(bit(colbits, 1), cy - lv, cy, h)
-    centre_row = bit(colbits, 2)
-    right_run = bound_gate(bit(rowbits, 0), cx + 1, cx + 1 + lh, w)
-    left_run = bound_gate(bit(rowbits, 1), cx - lh, cx, w)
-    centre_col = bit(rowbits, 2)
-    return opp._minimap_walks(
-        centre_row & down_run,
-        centre_row & up_run,
-        centre_col & right_run,
-        centre_col & left_run,
-        h,
-        w,
-    )
-
-
 def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
-    """Channel planes u8 [B, H, W] x3 -> i32 [B, 4] minimap rects (one launch
-    for the whole batch; SAD sums channels, so plane order does not matter)."""
+    """Channel planes u8 [B, H, W] x3 -> i32 [B, 4] minimap rects (one C call
+    for the whole batch: a scratch clear and one launch; SAD sums channels,
+    so plane order does not matter)."""
     device = _check_planes((p0, p1, p2), 3)
     if device.type == "cpu":
         return minimap_rect_planes_plain(p0, p1, p2)
@@ -181,19 +144,17 @@ def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) ->
     bsz, h, w = p0.shape
     if p0.numel() == 0:
         raise ValueError(f"empty planes {tuple(p0.shape)}")
-    cy, lv, cx, lh = _run_lengths(h, w)
-    colbits = torch.full((bsz, w), 7, dtype=torch.int32, device=device)
-    rowbits = torch.full((bsz, h), 7, dtype=torch.int32, device=device)
+    out = torch.empty((bsz, 4), dtype=torch.int32, device=device)
+    scratch = torch.empty(bsz * (w + h + 1), dtype=torch.int32, device=device)
     lib = _build.load()
     with torch.cuda.device(device):
         code = lib.smh_quiet_walk(
-            p0.data_ptr(), p1.data_ptr(), p2.data_ptr(),
-            colbits.data_ptr(), rowbits.data_ptr(),
-            bsz, h, w, cy, lv, cx, lh, _stream_ptr(p0),
+            p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+            bsz, h, w, _stream_ptr(p0),
         )
     _build.check(code, "smh_quiet_walk")
     LAUNCHES["quiet_walk"] += 1
-    return rect_from_bits(colbits, rowbits, h, w)
+    return out
 
 
 # -- kernel 3: fused classify -> dilate -> bit-pack ---------------------------------

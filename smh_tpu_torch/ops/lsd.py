@@ -27,10 +27,8 @@ import math
 import numpy as np
 import torch
 
-from smh_tpu import consts as C
-from smh_tpu.geometry import Line, Point
-
-from .. import _build
+from .. import _build, consts as C
+from ..geometry import Line, Point
 from . import kernels
 from . import scales_device as sd
 

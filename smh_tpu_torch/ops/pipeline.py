@@ -34,8 +34,8 @@ from __future__ import annotations
 
 import torch
 
-from smh_tpu import consts as C
-from smh_tpu.ocr.engine import OCR_BINARY_THRESHOLD
+from .. import consts as C
+from ..ocr.engine import OCR_BINARY_THRESHOLD
 
 from . import hsv, kernels
 from . import scales_device as sd
@@ -230,8 +230,8 @@ def _minimap_rect(quiet: torch.Tensor) -> torch.Tensor:
 
 def _minimap_walks(left_q, right_q, up_q, down_q, h: int, w: int) -> torch.Tensor:
     """The centre-out first-true walks over the per-direction qualifier
-    vectors [..., n] (shared by the plain path and the quiet-walk kernel's
-    tail) -> i32 [..., 4]."""
+    vectors [..., n] -> i32 [..., 4] (csrc/quiet_walk.cu runs them as index
+    reductions on the card)."""
     cx, cy = w // 2, h // 2
 
     def walk_down(q, start: int):

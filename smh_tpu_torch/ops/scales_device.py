@@ -23,12 +23,12 @@ Translation notes:
 from __future__ import annotations
 
 import functools
-import pathlib
 
 import numpy as np
 import torch
 
-from smh_tpu.ocr.engine import OCR_BINARY_THRESHOLD  # noqa: F401  (re-export)
+from ..ocr.engine import OCR_BINARY_THRESHOLD, OcrResult  # noqa: F401  (re-export)
+from ..ocr.smhocr import FONTS
 
 from .hsv import f32_scalar
 
@@ -72,12 +72,6 @@ def score_lanes() -> np.ndarray:
     lanes = np.arange(REC_I16)
     in_word = (lanes - HDR_I16) % WORD_I16
     return (lanes >= HDR_I16) & (in_word >= 10 + MAX_WG) & (in_word < 10 + 2 * MAX_WG)
-
-
-# DejaVu Sans regular + bold, bundled with the package (license beside them):
-# the same files smh_tpu reads from the system font directory.
-FONT_DIR = pathlib.Path(__file__).resolve().parent.parent / "fonts"
-FONTS = (FONT_DIR / "DejaVuSans.ttf", FONT_DIR / "DejaVuSans-Bold.ttf")
 
 
 # ---------------------------------------------------------------------------
@@ -492,8 +486,6 @@ class DeviceScales:
 
 def decode_records(rec_i16: np.ndarray) -> DeviceScales:
     """Parse the i16 record vector (already byte-order native)."""
-    from smh_tpu.ocr.engine import OcrResult
-
     hdr = rec_i16[:HDR_I16]
     n_bands = int(hdr[0])
     flags = int(hdr[1])

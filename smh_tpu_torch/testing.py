@@ -1,19 +1,32 @@
-"""Synthetic frames for the port's tests and chip smoke.
+"""Synthetic frame generation for tests, the fake-input harness, and bench.
 
-`make_frame` equals smh_tpu.testing.make_frame byte for byte, but renders
-scale texts with the DejaVu Sans copy bundled in `smh_tpu_torch/fonts/`
-(the device templates read the same files), so frames with real glyphs can
-be made on machines without system fonts.
+The reference ships a screenshot corpus (vision-common/samples) and a
+"Fake Input" debug mode that substitutes samples for live capture
+(src/ui/debug.rs:46-82). This module generates fully synthetic frames with
+*known* ground truth — marker lines, scale bars, the red close-deployment
+button — so the suite can assert detections without any game assets.
+Real reference samples are additionally used by the golden tests when the
+read-only reference checkout is present.
+
+The port's copy of smh_tpu/testing.py: scale texts are rendered with the
+DejaVu Sans copy bundled in `smh_tpu_torch/fonts/` (the OCR templates read
+the same files), so frames with real glyphs can be made on machines without
+system fonts.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from smh_tpu import consts as C
-from smh_tpu import testing as _testing
+from . import consts as C
+from .ocr.smhocr import FONTS
+from .utils.plot import plot_line
 
-from .ops.scales_device import FONTS
+# An RGB color that passes the alpha-fireteam marker classifier:
+# HSV (105, 100, 100) -> RGB (64, 255, 0).
+ALPHA_MARKER_RGB = (64, 255, 0)
+# Close-deployment-button red (consts: CLOSE_DEPLOYMENT_BUTTON_COLOR).
+BUTTON_RED_RGB = tuple(int(v) for v in C.CLOSE_DEPLOYMENT_BUTTON_COLOR)
 
 
 def fonts_present() -> dict:
@@ -21,36 +34,204 @@ def fonts_present() -> dict:
     return {str(p): p.exists() for p in FONTS}
 
 
+def _put_rgb(frame_bgra: np.ndarray, y, x, rgb) -> None:
+    frame_bgra[y, x, 0] = rgb[2]
+    frame_bgra[y, x, 1] = rgb[1]
+    frame_bgra[y, x, 2] = rgb[0]
+
+
 def make_frame(
     frame_w: int = 1920,
     frame_h: int = 1080,
-    marker_lines=(),
+    marker_lines: list[tuple[tuple[int, int], tuple[int, int]]] = (),
     with_button: bool = True,
-    scale_bars=(),
-    scale_texts=(),
-    background=(90, 80, 70),
+    scale_bars: list[tuple[int, int, int, int]] = (),  # (x, y, width, thickness)
+    scale_texts: list[tuple[str, tuple[int, int]]] = (),  # ("300m", (x, y)) in BRQ coords
+    background: tuple[int, int, int] = (90, 80, 70),
     line_thickness: int = 2,
 ) -> np.ndarray:
-    """BGRA u8 frame: smh_tpu.testing.make_frame, with scale texts stamped
-    from the bundled font (same size, placement and colour)."""
+    """Build a BGRA u8 frame.
+
+    marker_lines are given in *map-ROI* coordinates; scale_bars and
+    scale_texts in *BRQ* coordinates. scale_texts renders real glyphs
+    (DejaVu Sans, bright monochrome) that survive the OCR preprocess and are
+    readable by the self-contained smhocr engine — end-to-end scales-branch
+    tests/benches without canned engine results. The background is a
+    non-marker, non-monochrome color so it neither triggers the classifier
+    nor the OCR keep-mask.
+    """
+    g = C.map_geometry(frame_w, frame_h)
+    frame = np.empty((frame_h, frame_w, 4), dtype=np.uint8)
+    frame[..., 0] = background[2]
+    frame[..., 1] = background[1]
+    frame[..., 2] = background[0]
+    frame[..., 3] = 255
+
+    if with_button:
+        frame[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w, 0] = BUTTON_RED_RGB[2]
+        frame[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w, 1] = BUTTON_RED_RGB[1]
+        frame[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w, 2] = BUTTON_RED_RGB[0]
+
+    # Marker lines drawn into the map ROI in the alpha fireteam color.
+    map_view = frame[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w]
+    mask = np.zeros(map_view.shape[:2], dtype=np.uint8)
+    for (x0, y0), (x1, y1) in marker_lines:
+        plot_line(mask, x0, y0, x1, y1, 255)
+    if line_thickness > 1:
+        from .vision.pixmath import dilate_l1_radius1
+
+        for _ in range(line_thickness - 1):
+            mask = dilate_l1_radius1(mask)
+    ys, xs = np.nonzero(mask)
+    _put_rgb(map_view, ys, xs, ALPHA_MARKER_RGB)
+
+    # Scale bars drawn into the BRQ in black: |----| shape. The background is
+    # already non-zero-luma, which is all the scales binarize needs; a bright
+    # surround would bleed into the OCR keep-mask as a giant blob.
+    if scale_bars:
+        brq_view = frame[g.brq_y : g.brq_y + g.brq_h, g.brq_x : g.brq_x + g.brq_w]
+        for x, y, width, thickness in scale_bars:
+            # horizontal line
+            brq_view[y : y + thickness, x : x + width + 1, :3] = 0
+            # vertical end bars (4 px down from the line's row)
+            brq_view[y : y + 4, x, :3] = 0
+            brq_view[y : y + 4, x + width, :3] = 0
+
+    if scale_texts:
+        from PIL import Image, ImageDraw, ImageFont
+
+        brq_view = frame[g.brq_y : g.brq_y + g.brq_h, g.brq_x : g.brq_x + g.brq_w]
+        font = None
+        for path in FONTS:
+            try:
+                # 20 px reads at ~95% confidence with smhocr; below ~18 px the
+                # thresholded glyph shapes drift too far from the templates.
+                font = ImageFont.truetype(str(path), 20)
+                break
+            except OSError:
+                continue
+        if font is None:
+            # PIL's default bitmap font renders ~10 px glyphs the smhocr
+            # templates cannot match — failing silently would make frames
+            # textless and send callers debugging the wrong layer.
+            raise RuntimeError("scale_texts needs DejaVu Sans installed")
+        for text, (tx, ty) in scale_texts:
+            img = Image.new("L", (20 * len(text) + 8, 30), 0)
+            d = ImageDraw.Draw(img)
+            d.text((2, 2), text, fill=255, font=font)
+            glyph = np.asarray(img)
+            ys, xs = np.nonzero(glyph > 128)
+            for yy, xx in zip(ys, xs):
+                py, px = ty + yy, tx + xx
+                if 0 <= py < brq_view.shape[0] and 0 <= px < brq_view.shape[1]:
+                    brq_view[py, px, :3] = 236  # bright monochrome: OCR keeps it
+
+    return frame
+
+
+def draw_marker_line(
+    frame_bgra: np.ndarray,
+    p0: tuple[int, int],
+    p1: tuple[int, int],
+    thickness: int = 2,
+) -> None:
+    """Draw one alpha-fireteam marker line into a frame's map ROI in place
+    (map-ROI coordinates) — overlays live-play-like motion onto REAL
+    screenshots (bench `--mode corpus` live sequences)."""
+    from . import consts as C
+
+    g = C.map_geometry(frame_bgra.shape[1], frame_bgra.shape[0])
+    map_view = frame_bgra[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w]
+    mask = np.zeros(map_view.shape[:2], dtype=np.uint8)
+    plot_line(mask, p0[0], p0[1], p1[0], p1[1], 255)
+    if thickness > 1:
+        from .vision.pixmath import dilate_l1_radius1
+
+        for _ in range(thickness - 1):
+            mask = dilate_l1_radius1(mask)
+    ys, xs = np.nonzero(mask)
+    _put_rgb(map_view, ys, xs, ALPHA_MARKER_RGB)
+
+
+def make_video_frames(w: int, h: int, n: int) -> list[np.ndarray]:
+    """A deterministic video-like sequence: marker lines move continuously
+    frame to frame and a BRQ patch changes every frame (defeats the ratio
+    cache), while the map background stays — a delta-chain consumer ships
+    only the real inter-frame motion, as it would for game footage. Shared
+    by bench.py's batch metric and the video-golden test (the goldens pin
+    the oracle's per-frame detections on this exact sequence)."""
+    from . import consts as C
+
+    g = C.map_geometry(w, h)
+    frames = []
+    for i in range(n):
+        # Bounded triangle-wave motion: equal to 5*i on the first rising
+        # edge (the golden-pinned frames 0..23 use off <= 115, unchanged),
+        # then the lines sweep back instead of drifting off-frame — long
+        # sequences (e.g. bench --batch 16 needs 350+ frames) keep both
+        # markers on screen at every supported resolution.
+        p = (5 * i) % 400
+        off = p if p < 200 else 400 - p
+        frame = make_frame(
+            w,
+            h,
+            marker_lines=[
+                ((120 + off, 150 + off // 2), (700 + off, 520)),
+                ((w // 4, h // 3 + off), (w // 4 + 450, h // 3 + 60 + off)),
+            ],
+            scale_texts=[("300m", (60, 170))],
+            scale_bars=[(60, 200, 120, 1)],
+        )
+        frame[g.brq_y + 300 + off % 40 : g.brq_y + 310 + off % 40,
+              g.brq_x + 300 : g.brq_x + 340, :3] = 255
+        frames.append(frame)
+    return frames
+
+
+def upscale_frame(frame: np.ndarray, w: int, h: int) -> np.ndarray:
+    """Nearest-neighbour upscale of a BGRA frame (4K stress corpus from the
+    reference's 1440p screenshots — tests/goldens/detections_4k.json records
+    this provenance; NEAREST keeps every pixel an exact original color, so
+    the HSV classifier sees real game colors, just bigger)."""
+    try:
+        import cv2
+
+        return cv2.resize(frame, (w, h), interpolation=cv2.INTER_NEAREST)
+    except ImportError:  # pragma: no cover
+        ys = (np.arange(h) * frame.shape[0]) // h
+        xs = (np.arange(w) * frame.shape[1]) // w
+        return frame[ys][:, xs]
+
+
+def render_text_mask(text: str, height: int = 20) -> np.ndarray:
+    """Tightly-cropped u8 0/255 glyph mask of `text` (DejaVu Sans) — for
+    tests that need raw glyph pixels outside a full frame (e.g. feeding a
+    real OCR engine directly)."""
     from PIL import Image, ImageDraw, ImageFont
 
-    frame = _testing.make_frame(
-        frame_w, frame_h, marker_lines=marker_lines, with_button=with_button,
-        scale_bars=scale_bars, scale_texts=(), background=background,
-        line_thickness=line_thickness,
-    )
-    if not scale_texts:
-        return frame
-    g = C.map_geometry(frame_w, frame_h)
-    brq_view = frame[g.brq_y : g.brq_y + g.brq_h, g.brq_x : g.brq_x + g.brq_w]
-    font = ImageFont.truetype(str(FONTS[0]), 20)
-    for text, (tx, ty) in scale_texts:
-        img = Image.new("L", (20 * len(text) + 8, 30), 0)
-        ImageDraw.Draw(img).text((2, 2), text, fill=255, font=font)
-        ys, xs = np.nonzero(np.asarray(img) > 128)
-        for yy, xx in zip(ys, xs):
-            py, px = ty + yy, tx + xx
-            if 0 <= py < brq_view.shape[0] and 0 <= px < brq_view.shape[1]:
-                brq_view[py, px, :3] = 236  # bright monochrome: OCR keeps it
-    return frame
+    font = None
+    for path in FONTS:
+        try:
+            font = ImageFont.truetype(str(path), height)
+            break
+        except OSError:
+            continue
+    if font is None:
+        raise RuntimeError("render_text_mask needs DejaVu Sans installed")
+    img = Image.new("L", (height * len(text) + 8, height + 12), 0)
+    ImageDraw.Draw(img).text((2, 2), text, fill=255, font=font)
+    mask = (np.asarray(img) > 128).astype(np.uint8) * np.uint8(255)
+    ys, xs = np.nonzero(mask)
+    return mask[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
+
+
+def make_ocr_text_patch(
+    frame: np.ndarray, brq_x: int, brq_y: int, w: int = 30, h: int = 12
+) -> None:
+    """Stamp a bright monochrome block into the BRQ (something the OCR
+    preprocess keeps). Does not render a real glyph — tests that need real
+    OCR inject results through the engine seam instead."""
+    g = C.map_geometry(frame.shape[1], frame.shape[0])
+    ys = g.brq_y + brq_y
+    xs = g.brq_x + brq_x
+    frame[ys : ys + h, xs : xs + w, :3] = 230

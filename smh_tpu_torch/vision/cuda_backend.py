@@ -48,16 +48,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from smh_tpu import consts as C
-from smh_tpu import native
-from smh_tpu.geometry import Line, Point
-from smh_tpu.vision import lsd
-from smh_tpu.vision.reference import DebugView
-
+from .. import consts as C
+from .. import native
 from .. import resolve_device
+from ..geometry import Line, Point, Rect
 from ..ops import lsd as ops_lsd
 from ..ops import pipeline as ops_pipeline
 from ..ops import scales_device as ops_scales_device
+from . import lsd
+from .reference import DebugView
 
 # Maps whose full bit-mask is at most this many bytes skip the windowing
 # and sparse transports (tiny frames: the full plane is already small).
@@ -256,7 +255,10 @@ class CudaBackend:
         (pack/diff and the LSD) is unavailable."""
         self.device = resolve_device(device)
         if not native.available():
-            raise RuntimeError("CudaBackend needs the native host module (pack/diff, find_lines)")
+            raise RuntimeError(
+                "CudaBackend needs the native host module (pack/diff, find_lines): "
+                f"{native.build_error or 'it did not load (see the log)'}"
+            )
         if lsd_engine == "auto":
             lsd_engine = "native"
         if lsd_engine not in ("native", "cuda"):
@@ -864,8 +866,6 @@ class CudaBackend:
     def minimap_rect(self):
         """Minimap bounds computed on the device in the fused pass, or None
         when the dispatch skipped it."""
-        from smh_tpu.geometry import Rect
-
         if self._host is None or self.geom is None or "minimap_rect" not in self._host:
             return None
         if self.geom.map_w < 3 or self.geom.map_h < 3:

@@ -1,7 +1,8 @@
 """The port's app entry point (smh_tpu_torch.app) on the CPU: the command
-line, the port's state inside smh_tpu's App, a pipelined run that
-delivers an update, --debug-web and /api/debug-view against smh_tpu's App,
-and the flag that is not ported yet."""
+line, the port's App and state, a pipelined run that delivers an update,
+--debug-web and /api/debug-view against smh_tpu's App (each App with its
+own package's engine, settings, sources and views), and the flag that is
+not ported yet."""
 
 import io
 import time
@@ -12,13 +13,16 @@ import torch
 from PIL import Image
 
 from smh_tpu import app as smh_app
-from smh_tpu import native
-from smh_tpu.ocr.smhocr import SmhOcrEngine
-from smh_tpu.settings import Settings
-from smh_tpu.squadex.capture import Frame, StaticSource
-from smh_tpu.vision.reference import DebugView
+from smh_tpu.ocr.smhocr import SmhOcrEngine as JSmhOcrEngine
+from smh_tpu.settings import Settings as JSettings
+from smh_tpu.squadex.capture import Frame as JFrame, StaticSource as JStaticSource
+from smh_tpu.vision.reference import DebugView as JDebugView
 from smh_tpu_torch import app as tapp
-from smh_tpu_torch import testing
+from smh_tpu_torch import native, testing
+from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+from smh_tpu_torch.settings import Settings
+from smh_tpu_torch.squadex.capture import Frame, StaticSource
+from smh_tpu_torch.vision.reference import DebugView
 from smh_tpu_torch.vision import pipeline as tpipeline
 
 torch.set_num_threads(1)
@@ -88,8 +92,8 @@ def test_pipelined_app_on_cpu_delivers_an_update():
     assert status == 200 and body["backend"] == "cuda"
 
 
-def _hw_settings():
-    s = Settings(path=None)
+def _hw_settings(cls=Settings):
+    s = cls(path=None)
     s.set("hardware_acceleration", True, save=False)
     return s
 
@@ -106,12 +110,13 @@ def test_debug_view_endpoint_answers_as_the_jax_app():
     )
     port = tapp.App(StaticSource(frame, dpi=96), settings=_hw_settings(), device="cpu",
                     serve=False, ocr_engine=SmhOcrEngine())
-    ref = smh_app.App(StaticSource(frame, dpi=96), settings=_hw_settings(), serve=False,
-                      ocr_engine=SmhOcrEngine())
+    ref = smh_app.App(JStaticSource(frame, dpi=96), settings=_hw_settings(JSettings), serve=False,
+                      ocr_engine=JSmhOcrEngine())
     try:
-        for app in (port, ref):
-            assert app.state.process(Frame(frame, 96)) is not None
+        assert port.state.process(Frame(frame, 96)) is not None
+        assert ref.state.process(JFrame(frame, 96)) is not None
         assert port.state.delegate.backend.name == "cuda" and ref.state.delegate.backend.name == "tpu"
+        assert [v.name for v in DebugView] == [v.name for v in JDebugView]
         statuses = {}
         for view in DebugView:
             got = port._api("/api/debug-view", {"choice": view.name})
@@ -139,7 +144,8 @@ def test_debug_web_builds_the_state_as_the_jax_app():
     source = StaticSource(testing.make_frame(640, 480))
     app = tapp.App(source, device="cpu", serve=False, ocr_engine=SmhOcrEngine(),
                    scales_async=True, debug_web=True)
-    ref = smh_app.App(source, serve=False, ocr_engine=SmhOcrEngine(), scales_async=True, debug_web=True)
+    ref = smh_app.App(JStaticSource(testing.make_frame(640, 480)), serve=False, ocr_engine=JSmhOcrEngine(),
+                      scales_async=True, debug_web=True)
     try:
         assert isinstance(app.state, tpipeline.VisionState) and app.debug_web
         for a in (app, ref):

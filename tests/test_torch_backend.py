@@ -1,18 +1,25 @@
 """The port's VisionState + CudaBackend on the CPU (plain kernel twins) against
 smh_tpu's VisionState with TpuBackend on JAX CPU: same markers, ratio,
-minimap and hostpack bytes, and the same transport adaptation."""
+minimap and hostpack bytes, and the same transport adaptation. Each side
+runs its own package's driver, OCR engine, settings and frames; results
+are compared by value."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C, testing
-from smh_tpu.ocr.smhocr import SmhOcrEngine
-from smh_tpu.settings import Settings
-from smh_tpu.squadex.capture import Frame
+from smh_tpu.ocr.smhocr import SmhOcrEngine as JSmhOcrEngine
+from smh_tpu.settings import Settings as JSettings
+from smh_tpu.squadex.capture import Frame as JFrame
 from smh_tpu.vision import pipeline as jpipeline
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C, testing
+from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
 from smh_tpu_torch.ops import pipeline as tpp
+from smh_tpu_torch.settings import Settings
+from smh_tpu_torch.squadex.capture import Frame
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pipeline as tpipeline
 
@@ -28,10 +35,14 @@ def _frame(**kw):
     return testing.make_frame(W, H, **kw)
 
 
-def _settings(hw=True):
-    s = Settings(path=None)
+def _settings(hw=True, cls=Settings):
+    s = cls(path=None)
     s.set("hardware_acceleration", hw, save=False)
     return s
+
+
+def _rect(r):
+    return None if r is None else dataclasses.astuple(r)
 
 
 @pytest.fixture
@@ -41,7 +52,7 @@ def states(monkeypatch):
     # port's delta chain).
     monkeypatch.setenv("SMH_DELTA", "0")
     port = tpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine(), device="cpu")
-    ref = jpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine())
+    ref = jpipeline.VisionState(settings=_settings(cls=JSettings), ocr_engine=JSmhOcrEngine())
     yield port, ref
     port.close()
     ref.close()
@@ -53,7 +64,7 @@ def _lines(res):
 
 def _assert_same(port, ref, frame):
     rp = port.process(Frame(frame, 96))
-    rr = ref.process(Frame(frame, 96))
+    rr = ref.process(JFrame(frame, 96))
     bp, br = port.delegate.backend, ref.delegate.backend
     assert bp.name == "cuda" and br.name == "tpu"
     if rr is None:
@@ -61,7 +72,7 @@ def _assert_same(port, ref, frame):
         return None
     assert _lines(rp) == _lines(rr)
     assert rp.meters_to_px_ratio == rr.meters_to_px_ratio
-    assert rp.minimap_bounds == rr.minimap_bounds
+    assert _rect(rp.minimap_bounds) == _rect(rr.minimap_bounds)
     np.testing.assert_array_equal(bp._results["hostpack"].numpy(), np.asarray(br._results["hostpack"]))
     return rp
 
@@ -76,7 +87,7 @@ def test_port_matches_tpu_backend_and_oracle(states):
     assert be.stats["device_scales_frames"] == 1 and be.stats["device_scales_fallbacks"] == 0
     assert be.stats["scalespack_fetches"] == 0
     assert set(be.stats) == set(ref.delegate.backend.stats)
-    np.testing.assert_array_equal(res.map, ref.process(Frame(frame, 96)).map)
+    np.testing.assert_array_equal(res.map, ref.process(JFrame(frame, 96)).map)
 
     oracle = tpipeline.VisionState(settings=_settings(hw=False), ocr_engine=SmhOcrEngine(), device="cpu")
     try:
@@ -131,17 +142,17 @@ def test_engine_without_device_read_uses_the_scalespack(monkeypatch):
     monkeypatch.setenv("SMH_DEVICE_SCALES", "0")
     monkeypatch.setenv("SMH_DELTA", "0")
     port = tpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine(), device="cpu")
-    ref = jpipeline.VisionState(settings=_settings(), ocr_engine=SmhOcrEngine())
+    ref = jpipeline.VisionState(settings=_settings(cls=JSettings), ocr_engine=JSmhOcrEngine())
     try:
         frames = [_frame()] * (cb._INLINE_STABLE_AFTER + 1) + [
             _frame(scale_texts=[("900m", (60, 170))])
         ]
         inlines, bands = [], []
         for frame in frames:
-            rp, rr = port.process(Frame(frame, 96)), ref.process(Frame(frame, 96))
+            rp, rr = port.process(Frame(frame, 96)), ref.process(JFrame(frame, 96))
             assert _lines(rp) == _lines(rr)
             assert rp.meters_to_px_ratio == rr.meters_to_px_ratio
-            assert rp.minimap_bounds == rr.minimap_bounds
+            assert _rect(rp.minimap_bounds) == _rect(rr.minimap_bounds)
             bp, br = port.delegate.backend, ref.delegate.backend
             assert bp._dispatch_flags[3] == br._dispatch_flags[6]
             assert bp._dispatch_flags.band == br._dispatch_flags[7]

@@ -1,17 +1,19 @@
 """CudaBackend's debug views (set_debug, the debug re-pass, get_debug_view)
 on the CPU against smh_tpu's TpuBackend, for each scales transport; the
 isolated marker pixels (LSD_PREPROCESS) against the pixmath classify, as
-the jitted XLA classify contracts the HSV math to FMA."""
+the jitted XLA classify contracts the HSV math to FMA. Each backend is asked
+for its own package's DebugView of the same name."""
 
 import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C, testing
-from smh_tpu.vision import pixmath
 from smh_tpu.vision import tpu_backend as tb
-from smh_tpu.vision.reference import DebugView
+from smh_tpu.vision.reference import DebugView as JDebugView
+from smh_tpu_torch import consts as C, testing
 from smh_tpu_torch.vision import cuda_backend as cb
+from smh_tpu_torch.vision import pixmath
+from smh_tpu_torch.vision.reference import DebugView
 
 torch.set_num_threads(1)
 
@@ -53,7 +55,7 @@ def test_debug_views_match_tpu_backend(engine):
     assert port._dispatch_flags.band is None  # debug turns the band off
     assert port._dispatch_flags.inline == ref._dispatch_flags[6]
     for view in DebugView:
-        got, want = port.get_debug_view(view), ref.get_debug_view(view)
+        got, want = port.get_debug_view(view), ref.get_debug_view(JDebugView[view.name])
         assert (got is None) == (want is None), view
         if got is None:
             assert view == DebugView.NONE
@@ -75,7 +77,7 @@ def test_views_without_debug_match_tpu_backend():
     are not — on both backends."""
     _, (port, ref) = _pair("device_read", debug=False)
     for view in DebugView:
-        got, want = port.get_debug_view(view), ref.get_debug_view(view)
+        got, want = port.get_debug_view(view), ref.get_debug_view(JDebugView[view.name])
         assert (got is None) == (want is None), view
         if got is not None:
             np.testing.assert_array_equal(got, want)

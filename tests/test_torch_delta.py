@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C
-from smh_tpu import native
 from smh_tpu.ops import pipeline as opp
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C
+from smh_tpu_torch import native
 from smh_tpu_torch import testing
 from smh_tpu_torch.ops import pipeline as tpp
 from smh_tpu_torch.vision import cuda_backend as cb

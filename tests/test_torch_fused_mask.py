@@ -18,12 +18,12 @@ import numpy as np
 import pytest
 import torch
 
-from smh_tpu import testing
 from smh_tpu.ops import hsv as jhsv
 from smh_tpu.ops import pipeline as opp
 from smh_tpu.ops.pallas_kernels import fused_mask_bits_pallas
-from smh_tpu.vision import pixmath
+from smh_tpu_torch import testing
 from smh_tpu_torch.ops import kernels
+from smh_tpu_torch.vision import pixmath
 
 torch.set_num_threads(1)
 

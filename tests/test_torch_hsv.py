@@ -8,8 +8,8 @@ import torch
 
 from smh_tpu.ops import hsv as jhsv
 from smh_tpu.ops.pallas_kernels import classify_luma_pallas_planes
-from smh_tpu.vision import pixmath
 from smh_tpu_torch.ops import hsv, kernels
+from smh_tpu_torch.vision import pixmath
 
 torch.set_num_threads(1)
 

@@ -1,10 +1,14 @@
-"""The PyTorch port imports no JAX, builds its kernels for sm_90a, and never
-picks a device behind the caller's back."""
+"""The PyTorch port imports no JAX and nothing of the JAX package smh_tpu
+(not even its jax-free host modules: the port has its own copies), builds
+its kernels for sm_90a, and never picks a device behind the caller's back."""
 
 import ast
 import pathlib
+import signal
 import subprocess
 import sys
+import threading
+import time
 
 import pytest
 import torch
@@ -14,15 +18,24 @@ torch.set_num_threads(1)
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "smh_tpu_torch"
 
-# smh_tpu modules that import jax at module level (directly or through them).
-# smh_tpu.app is not one of them: only its main() imports jax (for the
-# compile cache), and the port reuses its App class
-# (test_app_import_leaves_jax_out checks it).
-JAX_MODULES = (
-    "jax", "jaxlib", "smh_tpu.ops", "smh_tpu.vision.tpu_backend",
-    "smh_tpu.vision.batch", "smh_tpu.jax_cache", "smh_tpu.parallel",
-    "smh_tpu.worker",
-)
+# Top-level packages the port must never import.
+FORBIDDEN = ("jax", "jaxlib", "smh_tpu")
+
+
+def _leaked(modules) -> list:
+    return sorted(m for m in modules if m.split(".")[0] in FORBIDDEN)
+
+
+def _run_and_list_modules(code: str) -> tuple[list, str]:
+    """Run `code` in a fresh interpreter (tests/conftest.py has imported jax
+    and smh_tpu into this one) -> (its sys.modules at exit, its output)."""
+    code += "\nprint('MODULES', ' '.join(sorted(sys.modules)))\n"
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys\n" + code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    line = next(x for x in proc.stdout.splitlines() if x.startswith("MODULES "))
+    return line.split()[1:], proc.stdout
 
 
 def _port_sources():
@@ -30,43 +43,78 @@ def _port_sources():
 
 
 def test_import_leaves_jax_out_in_a_subprocess():
-    """tests/conftest.py imports jax into this process, so the check runs in
-    a fresh interpreter: every module of the port, then sys.modules."""
-    code = (
-        "import importlib, pkgutil, sys\n"
+    """Every module of the port, then chip_smoke: neither jax nor any module
+    of smh_tpu is loaded."""
+    modules, out = _run_and_list_modules(
+        "import importlib, pkgutil\n"
         "import smh_tpu_torch\n"
         "names = [m.name for m in pkgutil.walk_packages(smh_tpu_torch.__path__, 'smh_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 10 or 'smh_tpu_torch.ops.lsd' not in names else 0)\n"
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
-    )
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert not _leaked(modules), _leaked(modules)
+    for name in ("smh_tpu_torch.native", "smh_tpu_torch.vision.reference", "smh_tpu_torch.app",
+                 "smh_tpu_torch.ops.lsd", "smh_tpu_torch.web.server", "chip_smoke"):
+        assert name in modules, name
 
 
 def test_app_import_leaves_jax_out():
-    """The app module, smh_tpu's App it builds on, and the CLI's argument
-    parsing import no JAX (smh_tpu.app.main would, the port's main does not)."""
-    code = (
-        "import sys\n"
+    """The app, its App (built on the CPU with the numpy oracle) and the
+    CLI's synthetic source import neither JAX nor smh_tpu."""
+    modules, _ = _run_and_list_modules(
         "import smh_tpu_torch.app as a\n"
-        "a.build_parser().parse_args(['--synthetic', '--pipelined', '--no-web'])\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib')))\n"
-        "print(bad)\n"
-        "sys.exit(1 if bad or 'smh_tpu.app' not in sys.modules else 0)\n"
+        "from smh_tpu_torch.settings import Settings\n"
+        "args = a.build_parser().parse_args(['--synthetic', '--backend', 'numpy', '--device', 'cpu', '--no-web'])\n"
+        "s = Settings(path=None)\n"
+        "s.set('hardware_acceleration', False, save=False)\n"
+        "app = a.App(a._build_source(args), settings=s, device=args.device, serve=False)\n"
+        "app.state.close()\n"
     )
-    proc = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    assert not _leaked(modules), _leaked(modules)
+    assert "smh_tpu_torch.app" in modules and "smh_tpu_torch.testing" in modules
+
+
+def test_app_cli_runs_without_smh_tpu(tmp_path):
+    """`python -m smh_tpu_torch.app --synthetic --backend numpy --device cpu
+    --no-web` starts, processes frames and stops on SIGINT; `-X importtime`
+    lists every module it imported, and none is of jax or smh_tpu."""
+    proc = subprocess.Popen(
+        [sys.executable, "-X", "importtime", "-m", "smh_tpu_torch.app", "--synthetic", "--backend", "numpy",
+         "--device", "cpu", "--no-web", "--settings", str(tmp_path / "settings.json")],
+        cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
     )
-    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines: list[str] = []
+    running = threading.Event()
+
+    def read():
+        for line in proc.stderr:
+            lines.append(line)
+            if "running on cpu" in line:
+                running.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        assert running.wait(90), "".join(lines[-20:])
+        time.sleep(2.0)  # a few oracle frames
+        proc.send_signal(signal.SIGINT)
+        proc.wait(timeout=60)
+        reader.join(timeout=10)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    err = "".join(lines)
+    assert proc.returncode == 0, err[-3000:]
+    imported = [line.split("|")[-1].strip() for line in err.splitlines() if line.startswith("import time:")]
+    assert "smh_tpu_torch.vision.reference" in imported and "smh_tpu_torch.vision.pipeline" in imported
+    assert not _leaked(imported), _leaked(imported)
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
+    """No `import jax...` or `import smh_tpu...` (nor `from` forms) in any
+    module of the port or in chip_smoke.py."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -76,7 +124,7 @@ def test_no_jax_import_in_source(path):
         else:
             continue
         for name in names:
-            assert not name.startswith(JAX_MODULES), f"{path.name} imports {name}"
+            assert name.split(".")[0] not in FORBIDDEN, f"{path.name} imports {name}"
 
 
 def test_cuda_backend_without_cuda_raises():

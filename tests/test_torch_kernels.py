@@ -1,7 +1,9 @@
 """The kernel wrappers of smh_tpu_torch/ops/kernels.py on CPU tensors: the
-plain twins against the JAX package, the quiet-walk kernel's bit-word tail,
-the launch counters, and the wrappers' input checks. (The CUDA kernels
-themselves are held against these twins on the card by chip_smoke.py.)"""
+plain twins against the JAX package, a numpy restatement of the quiet-walk
+kernel (its cleared-bit run words and index-reduction walks) against the
+plain twin and the Pallas kernel in interpret mode, the launch counters,
+and the wrappers' input checks. (The CUDA kernels themselves are held
+against these twins on the card by chip_smoke.py.)"""
 
 import pathlib
 import re
@@ -14,6 +16,7 @@ import torch
 
 from smh_tpu.ops import pallas_kernels as pk
 from smh_tpu.ops import pipeline as opp
+from smh_tpu_torch import probe_quiet_walk as probe
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
 
@@ -52,11 +55,15 @@ def _jax_rect_batch(views):
     return np.asarray(_jax_rects(*(jnp.asarray(views[..., c]) for c in range(3))))
 
 
-# The height schedule of tests/test_scales_device.py:202-207, on the CUDA
-# kernel's tile height and on the TPU kernel's band height.
-HEIGHTS = [int(0.7 * TH), TH + 3, int(2.4 * TH) + 1, 4 * TH - 5] + [
-    int(0.7 * pk.QBAND_H), pk.QBAND_H + 3, int(2.4 * pk.QBAND_H) + 1, 4 * pk.QBAND_H - 5,
-]
+def _schedule(t: int) -> list:
+    """The height schedule of tests/test_scales_device.py:202-207 around a
+    tile height t."""
+    return [int(0.7 * t), t + 3, int(2.4 * t) + 1, 4 * t - 5]
+
+
+# Around the first CUDA kernel's 8-row tiles, the TPU kernel's bands and the
+# CUDA kernel's tile height.
+HEIGHTS = _schedule(8) + _schedule(pk.QBAND_H) + _schedule(TH)
 
 
 @pytest.mark.parametrize("trial,h", list(enumerate(HEIGHTS)))
@@ -71,43 +78,122 @@ def test_plain_minimap_rect_matches_jax(trial, h):
     assert got.tolist() == _jax_rect_batch(views).tolist(), (h, w)
 
 
-def _kernel_words(quiet: torch.Tensor):
-    """What csrc/quiet_walk.cu writes for a quiet mask [B, H, W]: the 3-bit
-    column and row words (AND identity 7 for empty ranges)."""
-    bsz, h, w = quiet.shape
-    cy, lv, cx, lh = kernels._run_lengths(h, w)
-
-    def all_or_true(t, dim):
-        if t.shape[dim] == 0:
-            shape = list(t.shape)
-            del shape[dim]
-            return torch.ones(shape, dtype=torch.bool)
-        return t.all(dim=dim)
-
-    col = (
-        all_or_true(quiet[:, cy + 1 : cy + 1 + lv], 1).int()
-        + 2 * all_or_true(quiet[:, max(cy - lv, 0) : cy], 1).int()
-        + 4 * quiet[:, cy].int()
-    )
-    row = (
-        all_or_true(quiet[:, :, cx + 1 : cx + 1 + lh], 2).int()
-        + 2 * all_or_true(quiet[:, :, max(cx - lh, 0) : cx], 2).int()
-        + 4 * quiet[:, :, cx].int()
-    )
-    return col, row
+def _gate_zero(lo: int, hi: int, dim: int) -> bool:
+    """The walk's run-bound rule: a non-empty run outside [3, dim-3]
+    qualifies nothing."""
+    return hi > lo and (lo < 3 or hi - 1 > dim - 3)
 
 
-@pytest.mark.parametrize("trial,h", list(enumerate([TH + 3, 4 * TH - 5, 151, 822])))
+def _kernel_restatement(views: np.ndarray) -> np.ndarray:
+    """numpy restatement of csrc/quiet_walk.cu on BGR views [B, H, W, 3]:
+    the channel-summed SAD saturates at 255 (byte SIMD), the run words hold
+    the CLEARED bits (a non-quiet pixel inside a range), merged with OR from
+    zero; the walks are index reductions over the gated qualifiers. -> i32
+    [B, 4] (left, top, right, bottom)."""
+    bsz, h, w, _ = views.shape
+    v = views.astype(np.int32)
+    quiet = np.zeros((bsz, h, w), dtype=bool)
+    if h >= 3 and w >= 3:
+        m = np.zeros((bsz, h - 2, w - 2), dtype=np.int32)  # bytewise max of the saturated SADs
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                if dy or dx:
+                    d = np.abs(v[:, 1:-1, 1:-1] - v[:, 1 + dy : h - 1 + dy, 1 + dx : w - 1 + dx])
+                    m = np.maximum(m, np.minimum(np.minimum(d[..., 0] + d[..., 1], 255) + d[..., 2], 255))
+        quiet[:, 1:-1, 1:-1] = m <= 7
+    cy, cx = h // 2, w // 2
+    lv, lh = (h - cy) // 2 - 1, (w - cx) // 2 - 1
+    ys, xs = np.arange(h)[None, :, None], np.arange(w)[None, None, :]
+
+    def cleared(in_range, axis):
+        return (~quiet & in_range).any(axis=axis).astype(np.int32)
+
+    col = (cleared((ys >= cy + 1) & (ys < cy + 1 + lv), 1) | 2 * cleared((ys >= cy - lv) & (ys < cy), 1)
+           | 4 * cleared(ys == cy, 1))  # [B, W]
+    row = (cleared((xs >= cx + 1) & (xs < cx + 1 + lh), 2) | 2 * cleared((xs >= cx - lh) & (xs < cx), 2)
+           | 4 * cleared(xs == cx, 2))  # [B, H]
+    down0, up0 = _gate_zero(cy + 1, cy + 1 + lv, h), _gate_zero(cy - lv, cy, h)
+    right0, left0 = _gate_zero(cx + 1, cx + 1 + lh, w), _gate_zero(cx - lh, cx, w)
+    x, y = np.arange(w), np.arange(h)
+    out = []
+    for cw, rw in zip(col, row):
+        cq, rq = (cw & 4) == 0, (rw & 4) == 0
+        left = x[cq & ((cw & 1) == 0) & (not down0) & (x >= 3) & (x < cx)]
+        right = x[cq & ((cw & 2) == 0) & (not up0) & (x >= cx + 1) & (x <= w - 3)]
+        top = y[rq & ((rw & 1) == 0) & (not right0) & (y >= 3) & (y < cy)]
+        bottom = y[rq & ((rw & 2) == 0) & (not left0) & (y >= cy + 1) & (y <= h - 3)]
+        out.append([
+            max(left.tolist(), default=-1) + 1, max(top.tolist(), default=-1) + 1,
+            min(right.tolist(), default=w) - 1, min(bottom.tolist(), default=h) - 1,
+        ])
+    return np.asarray(out, dtype=np.int32).reshape(bsz, 4)
+
+
+def _pallas_rects(views: np.ndarray) -> np.ndarray:
+    """JAX's quiet-walk Pallas kernel in interpret mode, one map at a time."""
+    return np.stack([
+        np.asarray(pk.minimap_rect_pallas_planes(*(jnp.asarray(m[..., c]) for c in range(3)), interpret=True))
+        for m in views
+    ])
+
+
+@pytest.mark.parametrize("trial,h", list(enumerate([11, 27, 151, 822])))
 def test_rect_from_kernel_words_matches_jax(trial, h):
-    """The wrapper's PyTorch tail (bound_gate + walks) on the bit words the
-    kernel produces gives the JAX rect."""
+    """The kernel's cleared-bit words and index-reduction walks (restated in
+    numpy) give the JAX rect and the plain twin's."""
     rng = np.random.default_rng(200 + trial)
     w = 986 if h == 822 else int(rng.integers(40, 300)) | 1
     views = _views(rng, 2, h, w, trial)
-    quiet = tpp._edgy_quiet_planes(*_planes(views))
-    col, row = _kernel_words(quiet)
-    got = kernels.rect_from_bits(col, row, h, w)
+    got = _kernel_restatement(views)
     assert got.tolist() == _jax_rect_batch(views).tolist(), (h, w)
+    assert got.tolist() == kernels.minimap_rect_planes_plain(*_planes(views)).tolist(), (h, w)
+
+
+def _edge_case(name: str) -> np.ndarray:
+    """BGR views [2, H, W, 3] for the walk's gate edge cases."""
+    rng = np.random.default_rng(300 + EDGE_CASES.index(name))
+    shapes = {
+        "h_below_8": (5, 40), "w_below_8": (40, 6), "tiny": (3, 3), "one_row": (1, 9),
+        "up_run_lo_below_3": (7, 50), "runs_empty": (6, 33), "all_quiet": (45, 70), "all_edgy": (45, 70),
+        "tile_seams": (TH + 1, kernels.QUIET_TILE_W + 1),
+    }
+    h, w = shapes[name]
+    if name == "all_quiet":
+        views = np.empty((2, h, w, 3), np.uint8)
+        views[0], views[1] = 77, 200
+    elif name == "all_edgy":
+        views = np.zeros((2, h, w, 3), np.uint8)
+        views[:, ::2, ::2] = views[:, 1::2, 1::2] = 255  # every neighbourhood holds a 765 SAD
+    else:
+        views = _views(rng, 2, h, w, 0)
+        views[1] = 120  # a quiet map of the same shape
+    return views
+
+
+EDGE_CASES = ["h_below_8", "w_below_8", "tiny", "one_row", "up_run_lo_below_3", "runs_empty",
+              "all_quiet", "all_edgy", "tile_seams"]
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_kernel_restatement_gate_edge_cases(name):
+    """Maps smaller than 8 px, a run range that starts below 3, empty run
+    ranges (hi <= lo), an all-quiet and an all-edgy map: the restatement is
+    bit-equal to the plain twin and to the Pallas kernel in interpret mode."""
+    views = _edge_case(name)
+    h, w = views.shape[1:3]
+    cy, cx = h // 2, w // 2
+    lv, lh = (h - cy) // 2 - 1, (w - cx) // 2 - 1
+    if name == "up_run_lo_below_3":
+        assert _gate_zero(cy - lv, cy, h) and cy - lv < 3
+    if name == "runs_empty":
+        assert lv <= 0 < lh
+    got = _kernel_restatement(views)
+    assert got.tolist() == kernels.minimap_rect_planes_plain(*_planes(views)).tolist()
+    assert got.tolist() == _pallas_rects(views).tolist()
+    if name == "all_edgy":
+        assert got.tolist() == [[0, 0, w - 1, h - 1]] * 2
+    if name == "all_quiet":
+        assert got.tolist() == [[cx, cy, cx, cy]] * 2
 
 
 def test_build_command_compiles_the_csrc_files_for_sm90a():
@@ -137,6 +223,16 @@ def test_build_command_compiles_the_csrc_files_for_sm90a():
 def test_quiet_tile_height_matches_the_cuda_source():
     src = (CSRC / "quiet_walk.cu").read_text()
     assert int(re.search(r"constexpr int TH = (\d+);", src).group(1)) == TH
+    assert int(re.search(r"constexpr int TW = (\d+);", src).group(1)) == kernels.QUIET_TILE_W
+
+
+@pytest.mark.parametrize("variant", sorted(probe.VARIANTS))
+def test_quiet_walk_probe_patches_apply(variant):
+    """Each ablation of the probe applies to the kernel source as it is, and
+    changes it (except the unpatched build)."""
+    src = probe.patched(probe.VARIANTS[variant])
+    assert (src == (CSRC / "quiet_walk.cu").read_text()) == (not probe.VARIANTS[variant])
+    assert "smh_quiet_walk" in src and "__global__" in src
 
 
 def test_sources_note_the_kernels_they_replace():

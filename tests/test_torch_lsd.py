@@ -11,13 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C, testing
-from smh_tpu.geometry import Point
 from smh_tpu.ops import lsd as jlsd
-from smh_tpu.vision import pixmath
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C, testing
+from smh_tpu_torch.geometry import Point
 from smh_tpu_torch.ops import lsd as tlsd
 from smh_tpu_torch.vision import cuda_backend as cb
+from smh_tpu_torch.vision import pixmath
 
 torch.set_num_threads(1)
 

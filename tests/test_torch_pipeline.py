@@ -11,9 +11,9 @@ import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C, testing
 from smh_tpu.ops import pipeline as opp
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C, testing
 from smh_tpu_torch.ops import pipeline as tpp
 from smh_tpu_torch.ops import scales_device as tsd
 

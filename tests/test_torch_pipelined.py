@@ -12,13 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C
-from smh_tpu import native
-from smh_tpu.ocr.smhocr import SmhOcrEngine
-from smh_tpu.settings import Settings
-from smh_tpu.squadex.capture import CaptureThread, Frame
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C
+from smh_tpu_torch import native
 from smh_tpu_torch import testing
+from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+from smh_tpu_torch.settings import Settings
+from smh_tpu_torch.squadex.capture import CaptureThread, Frame
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision.pipeline import VisionLoop, VisionState
 
@@ -95,7 +95,7 @@ def test_pipelined_loop_matches_sync(truths, threaded, scales_async):
     submit = state.submit
     state.submit = lambda frame: submits.append(1) or submit(frame)
     errors = ErrorCount()
-    log = logging.getLogger("smh_tpu.vision.pipeline")
+    log = logging.getLogger("smh_tpu_torch.vision.pipeline")
     log.addHandler(errors)
     updates = []
     cap = CaptureThread(Cycle(FRAMES), hz=120).start()

@@ -2,6 +2,8 @@
 against the JAX package: the i16 records, the template matrix, and the
 jax-free host decode copies."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -135,8 +137,11 @@ def test_layout_constants_and_resample_match():
 def test_decode_copies_match_original(case):
     _, rec = _records(*CASES[case]())
     a, b = tsd.decode_records(rec), jsd.decode_records(rec)
-    for field in ("complete", "words", "bars", "trusted", "n_bands", "flags", "band_bits"):
+    for field in ("complete", "bars", "trusted", "n_bands", "flags", "band_bits"):
         assert getattr(a, field) == getattr(b, field), field
+    # OcrResult of each package: compared by value.
+    assert [dataclasses.astuple(w) for w in a.words] == [dataclasses.astuple(w) for w in b.words]
+    assert all(type(w).__module__ == "smh_tpu_torch.ocr.engine" for w in a.words)
     assert tsd.ratio_from_records(a) == jsd.ratio_from_records(b)
 
 

@@ -9,19 +9,28 @@ ladders and the parsed `_host` sections must be equal.
 
 Tests of tests/test_hostpack_v2.py, on 960x540 frames: the map's bit mask
 (25 KB) is above the 16 KiB windowing floor and the quadrant's bit plane
-(6.4 KB) above the 4 KiB band floor, and JAX's CPU compiles stay cheap."""
+(6.4 KB) above the 4 KiB band floor, and JAX's CPU compiles stay cheap.
+
+Each side runs its own package's driver, OCR engines, settings and frames;
+results are compared by value."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from smh_tpu import consts as C, testing
-from smh_tpu.ocr import FakeOcrEngine, OcrResult
-from smh_tpu.ocr.smhocr import SmhOcrEngine
-from smh_tpu.settings import Settings
-from smh_tpu.squadex.capture import Frame
+import smh_tpu.ocr as jocr
+from smh_tpu.ocr import smhocr as jsmhocr
+from smh_tpu.settings import Settings as JSettings
+from smh_tpu.squadex.capture import Frame as JFrame
 from smh_tpu.vision import pipeline as jpipeline
 from smh_tpu.vision import tpu_backend as tb
+from smh_tpu_torch import consts as C, testing
+from smh_tpu_torch import ocr as tocr
+from smh_tpu_torch.ocr import smhocr as tsmhocr
+from smh_tpu_torch.settings import Settings
+from smh_tpu_torch.squadex.capture import Frame
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pipeline as tpipeline
 
@@ -82,7 +91,8 @@ def assert_same_state(port: cb.CudaBackend, ref: tb.TpuBackend) -> None:
         if isinstance(want, np.ndarray):
             np.testing.assert_array_equal(got, want, err_msg=key)
         elif key == "scales_records":
-            assert (got.words, got.complete) == (want.words, want.complete)
+            assert [dataclasses.astuple(w) for w in got.words] == [dataclasses.astuple(w) for w in want.words]
+            assert got.complete == want.complete
         else:
             assert got == want, key
 
@@ -186,35 +196,40 @@ def test_sparse_steps_aside_for_the_window_then_reprobes(monkeypatch):
 # -- scales transports through VisionState ----------------------------------------
 
 
-def _settings():
-    s = Settings(path=None)
+def _settings(cls):
+    s = cls(path=None)
     s.set("hardware_acceleration", True, save=False)
     return s
 
 
 def _states(engine_factory):
-    port = tpipeline.VisionState(settings=_settings(), ocr_engine=engine_factory(), device="cpu")
-    ref = jpipeline.VisionState(settings=_settings(), ocr_engine=engine_factory())
+    """engine_factory(ocr package) -> an engine of that package."""
+    port = tpipeline.VisionState(settings=_settings(Settings), ocr_engine=engine_factory(tocr), device="cpu")
+    ref = jpipeline.VisionState(settings=_settings(JSettings), ocr_engine=engine_factory(jocr))
     return port, ref
 
 
 def process_both(port, ref, frame):
-    rp, rr = port.process(Frame(frame, 96)), ref.process(Frame(frame, 96))
+    rp, rr = port.process(Frame(frame, 96)), ref.process(JFrame(frame, 96))
     assert (rp is None) == (rr is None)
     if rp is not None:
-        assert [(l.p0, l.p1) for l in rp.markers] == [(l.p0, l.p1) for l in rr.markers]
+        assert [l.as_tuple() for l in rp.markers] == [l.as_tuple() for l in rr.markers]
         assert rp.meters_to_px_ratio == rr.meters_to_px_ratio
-        assert rp.minimap_bounds == rr.minimap_bounds
+        assert dataclasses.astuple(rp.minimap_bounds) == dataclasses.astuple(rr.minimap_bounds)
     assert_same_state(port.delegate.backend, ref.delegate.backend)
     return rp
 
 
-def _fake():
-    return FakeOcrEngine([OcrResult("300m", 91.0, 34, 76, 88, 91)])  # TEXT's box
+def _fake(ocr):
+    return ocr.FakeOcrEngine([ocr.OcrResult("300m", 91.0, 34, 76, 88, 91)])  # TEXT's box
 
 
-def _smhocr_image_path():
-    engine = SmhOcrEngine()
+def _smhocr(ocr):
+    return {tocr: tsmhocr, jocr: jsmhocr}[ocr].SmhOcrEngine()
+
+
+def _smhocr_image_path(ocr):
+    engine = _smhocr(ocr)
     engine.device_ok = False  # the band transports, not the device read
     return engine
 
@@ -292,16 +307,18 @@ def test_band_textless_without_a_fetch():
 
 
 def _tesseract(monkeypatch, tmp_path):
+    """Each package's Tesseract binding over the repo's C shim of the API."""
     from smh_tpu.native import tessmock
-    from smh_tpu.ocr import tesseract as T
+    from smh_tpu.ocr import tesseract as jtess
     from smh_tpu.ocr.tessdata_gen import ensure_default
+    from smh_tpu_torch.ocr import tesseract as ttess
 
     so = tessmock.lib_path()
     if so is None:
         pytest.skip("no C++ toolchain for smhtess")
     monkeypatch.setenv("SMH_TESS_LIB", str(so))
     ensure_default(tmp_path)
-    return lambda: T.TesseractEngine(tessdata=str(tmp_path))
+    return lambda ocr: {tocr: ttess, jocr: jtess}[ocr].TesseractEngine(tessdata=str(tmp_path))
 
 
 @pytest.mark.parametrize("engine", ["tesseract", "smhocr_no_device_read", "fake"])
@@ -315,7 +332,7 @@ def test_engine_configurations_match(engine, monkeypatch, tmp_path):
         want = ("gray", True)
     elif engine == "smhocr_no_device_read":
         monkeypatch.setenv("SMH_DEVICE_SCALES", "0")
-        factory = SmhOcrEngine
+        factory = _smhocr
         want = ("binary", True)
     else:
         factory = _fake
