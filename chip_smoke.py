@@ -12,9 +12,14 @@ each printing a line, each failing loudly:
                nvcc per source, all started together) and the native host
                module (g++) from smh_tpu_torch/native/;
   3. kernels — each CUDA kernel against its plain PyTorch version on the
-               card at the main path's shapes (exact), the classify and
-               fused mask kernels also over the whole 256^3 colour cube
-               (classify against the numpy oracle too), the quiet walk at
+               card at the main path's shapes (exact): the classify tables
+               against their plain twin; the classify and fused mask
+               kernels over the whole 256^3 colour cube (classify against
+               the numpy oracle too), on planes 1-15 bytes past an aligned
+               address, and in the main path's layout (three views of one
+               flat buffer) on random planes and on the verify frame's map
+               ROI, each timed on both with the share of pixels past the
+               max-byte mask; the quiet walk at
                the walk's gate edge cases (maps under 8 px, a run range
                starting below 3, empty run ranges, all-quiet and all-edgy
                maps) and around its tile seams with B = 3, the fused mask
@@ -95,10 +100,14 @@ LIVE_UPDATES = ((15.0, 24), (None, 90))  # (fps cap or None, updates per run)
 # outside the tensor cores (the rate integer work is counted against too).
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
-# Operations per pixel each function needs: classify's HSV + luma math; the
-# quiet mask's 4 symmetric 3-channel SAD terms (sub, abs, add) with their
-# compares and ANDs; classify + the cross dilate + the bit pack.
-OPS_PER_PX = {"classify_luma": 40, "quiet_walk": 40, "fused_mask": 45}
+# Operations per pixel each function needs: the quiet mask's 4 symmetric
+# 3-channel SAD terms (sub, abs, add) with their compares and ANDs. The
+# classify's depend on the data: (every pixel, each pixel whose max byte
+# passes the value mask) -- the max, min and mask test, then the HSV and
+# colour tests; classify_luma adds the luma to the first, fused_mask the
+# cross dilate and the bit pack.
+OPS_PER_PX = {"quiet_walk": 40}
+CLASSIFY_OPS = {"classify_luma": (12, 30), "fused_mask": (10, 30)}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -215,6 +224,50 @@ def percentile(xs, q: float) -> float:
     return xs[min(len(xs) - 1, int(q * len(xs)))]
 
 
+def mask_share(rgb: np.ndarray) -> float:
+    """Share of the pixels whose max byte passes the classify's value mask
+    (a non-zero byte of the tables' vib[256], after the f32 unit[256]): the
+    pixels the classify takes past its early-out."""
+    from smh_tpu_torch.ops import kernels as K
+
+    vib = K.classify_tables_plain()[1024:1280]
+    return float((vib[rgb.max(axis=-1)] != 0).mean())
+
+
+def flat_planes(rgb: np.ndarray, dev: torch.device):
+    """(r, g, b) as the main path lays them out: B, G, R planes of one flat
+    buffer at k * H * W (ops/pipeline.py::analyze_packed_flat)."""
+    h, w, _ = rgb.shape
+    bgr = np.ascontiguousarray(np.moveaxis(rgb[..., ::-1], -1, 0))
+    planes = torch.from_numpy(bgr).to(dev)
+    return planes[2], planes[1], planes[0]
+
+
+def offset_planes(rgb: np.ndarray, dev: torch.device, offset: int):
+    """(r, g, b), each plane in its own buffer `offset` bytes past an
+    aligned address."""
+    out = []
+    for c in range(3):
+        flat = torch.zeros(rgb[..., c].size + offset, dtype=torch.uint8, device=dev)
+        flat[offset:] = torch.from_numpy(np.ascontiguousarray(rgb[..., c])).reshape(-1).to(dev)
+        out.append(flat[offset:].view(rgb.shape[:2]))
+    return out
+
+
+def map_inputs(rng, w: int, h: int) -> dict:
+    """The two inputs each classify kernel is timed on at a map shape:
+    uniform random planes and the verify frame's map ROI (RGB)."""
+    from smh_tpu_torch import consts as C
+
+    gm = C.map_geometry(w, h)
+    frame = frame_for(w, h)
+    roi = frame[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w, 2::-1]
+    return {
+        "random": rng.integers(0, 256, (gm.map_h, gm.map_w, 3), dtype=np.uint8),
+        "verify frame": np.ascontiguousarray(roi),
+    }
+
+
 def phase_kernels(dev: torch.device) -> dict:
     from smh_tpu_torch import consts as C
     from smh_tpu_torch.vision import pixmath
@@ -222,8 +275,15 @@ def phase_kernels(dev: torch.device) -> dict:
 
     rng = np.random.default_rng(0)
     results = {}
+    inputs = {(w, h): map_inputs(rng, w, h) for w, h in ((1920, 1080), (3840, 2160))}
 
-    # -- kernel 1: the whole colour cube, then the map-ROI shapes ------------
+    # -- the classify tables, then kernel 1: the cube, offsets, map shapes ---
+    from smh_tpu_torch import _build
+
+    tables = K._classify_tables(_build.load(), dev).cpu().numpy()
+    require(np.array_equal(tables, K.classify_tables_plain()), "classify tables != plain")
+    print(f"kernels: classify tables ({tables.size} B: k/255 by __fdiv_rn, the max-byte mask, the colour "
+          f"tests) == plain", flush=True)
     v = np.arange(256, dtype=np.uint8)
     r, g, b = np.meshgrid(v, v, v, indexing="ij")
     cube = [torch.from_numpy(x.reshape(CUBE_SIDE, CUBE_SIDE).copy()).to(dev) for x in (r, g, b)]
@@ -238,23 +298,40 @@ def phase_kernels(dev: torch.device) -> dict:
     err = 0
     print(f"kernels: classify_luma exact on the 256^3 cube (kernel == plain == pixmath), "
           f"{int(m_oracle.sum())} marker colours", flush=True)
-    times = {}
-    for w, h in ((1920, 1080), (3840, 2160)):
-        gm = C.map_geometry(w, h)
-        planes = [torch.from_numpy(rng.integers(0, 256, (gm.map_h, gm.map_w), dtype=np.uint8)).to(dev)
-                  for _ in range(3)]
-        mk, lk = K.classify_luma_planes(*planes)
-        mp, lp = K.classify_luma_planes_plain(*planes)
+
+    def check_classify(p, label: str) -> None:
+        nonlocal err
+        mk, lk = K.classify_luma_planes(*p)
+        mp, lp = K.classify_luma_planes_plain(*p)
         err = max(err, int((mk.int() - mp.int()).abs().max()), int((lk.int() - lp.int()).abs().max()))
-        require(err == 0, f"classify kernel != plain at {gm.map_h}x{gm.map_w}")
+        require(err == 0, f"classify kernel != plain ({label})")
+
+    odd_shapes = ((37, 263), (2 * K.FUSED_TILE_H + 3, 987), (5, 13))  # n % 4 = 3, 1, 1
+    for offset in range(1, 16):
+        for h, w in odd_shapes:
+            check_classify(offset_planes(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), dev, offset),
+                           f"offset {offset} {h}x{w}")
+    print(f"kernels: classify_luma exact on planes 1-15 bytes past an aligned address at {odd_shapes}",
+          flush=True)
+    times = {}
+    for (w, h), ins in inputs.items():
+        gm = C.map_geometry(w, h)
         n_px = gm.map_h * gm.map_w
-        times[h] = {
-            "ms": cuda_ms(lambda: K.classify_luma_planes(*planes)),
-            "plain_ms": cuda_ms(lambda: K.classify_luma_planes_plain(*planes)),
-            "device_us": device_us(lambda: K.classify_luma_planes(*planes)),
-            **bound(5 * n_px, OPS_PER_PX["classify_luma"] * n_px),  # 3 B read + 2 B written
-        }
-        print(f"kernels: classify_luma {gm.map_h}x{gm.map_w} exact; " + timing_line(times[h]), flush=True)
+        for name, rgb in ins.items():
+            p = flat_planes(rgb, dev)
+            check_classify(p, f"{gm.map_h}x{gm.map_w} {name}, main-path layout")
+            share = mask_share(rgb)
+            base, hsv_ops = CLASSIFY_OPS["classify_luma"]
+            t = {
+                "ms": cuda_ms(lambda: K.classify_luma_planes(*p)),
+                "plain_ms": cuda_ms(lambda: K.classify_luma_planes_plain(*p)),
+                "device_us": device_us(lambda: K.classify_luma_planes(*p)),
+                **bound(5 * n_px, (base + hsv_ops * share) * n_px),  # 3 B read + 2 B written
+            }
+            print(f"kernels: classify_luma {gm.map_h}x{gm.map_w} {name} (main-path layout; {100 * share:.2f} % "
+                  f"of pixels pass the max-byte mask) exact; " + timing_line(t), flush=True)
+            if name == "random":
+                times[h] = t
     results["classify_luma"] = {
         "name": "classify_luma", "route": "cuda",
         "source": "smh_tpu_torch/csrc/classify_luma.cu",
@@ -355,9 +432,9 @@ def phase_kernels(dev: torch.device) -> dict:
     # -- kernel 3: the cube, ragged widths, tile seams, the map shapes ---------
     err = 0
 
-    def check_mask(rgb: np.ndarray, label: str):
+    def check_mask(rgb: np.ndarray, label: str, planes=None):
         nonlocal err
-        p = [torch.from_numpy(np.ascontiguousarray(rgb[..., c])).to(dev) for c in range(3)]
+        p = planes or [torch.from_numpy(np.ascontiguousarray(rgb[..., c])).to(dev) for c in range(3)]
         got = K.fused_mask_bits(*p)
         want = K.fused_mask_bits_plain(*p)
         require(got.shape == want.shape, f"fused_mask shape {tuple(got.shape)} != {tuple(want.shape)} ({label})")
@@ -378,26 +455,40 @@ def phase_kernels(dev: torch.device) -> dict:
         check_mask(marker_rich(int(rng.integers(5, 70)), w), f"ragged w={w}")
     th, tw = K.FUSED_TILE_H, K.FUSED_TILE_W
     for h in (th - 1, th, th + 1, 2 * th + 1, 3 * th - 1):
-        for w in (tw - 1, tw, tw + 1, 2 * tw + 3):
+        for w in (tw - 1, tw, tw + 1, 2 * tw + 3, tw + 31, tw + 33):
             rgb = np.full((h, w, 3), 40, dtype=np.uint8)
             rgb[max(th - 2, 0) : th + 2, tw - 3 : min(tw + 3, w)] = ALPHA_BGRA[2::-1]  # across both seams
+            rgb[max(th - 2, 0) : th + 2, 30:34] = ALPHA_BGRA[2::-1]  # across a word seam inside the tile
             rgb[h - 1, w - 1] = rgb[0, 0] = ALPHA_BGRA[2::-1]
             check_mask(rgb, f"seams {h}x{w}")
     print(f"kernels: fused_mask exact at ragged widths {ragged} with last-column markers and "
-          f"across the {th}x{tw} tile seams", flush=True)
+          f"across the {th}x{tw} tile seams and a word seam", flush=True)
+    for offset in range(1, 16):
+        for h, w in odd_shapes:
+            rgb = marker_rich(h, w)
+            check_mask(rgb, f"offset {offset} {h}x{w}", offset_planes(rgb, dev, offset))
+    print(f"kernels: fused_mask exact on planes 1-15 bytes past an aligned address at {odd_shapes}", flush=True)
     times = {}
-    for w, h in ((1920, 1080), (3840, 2160)):
+    for (w, h), ins in inputs.items():
         gm = C.map_geometry(w, h)
-        p, _ = check_mask(marker_rich(gm.map_h, gm.map_w), f"{gm.map_h}x{gm.map_w}")
         n_px = gm.map_h * gm.map_w
-        times[h] = {
-            "ms": cuda_ms(lambda: K.fused_mask_bits(*p)),
-            "plain_ms": cuda_ms(lambda: K.fused_mask_bits_plain(*p)),
-            "device_us": device_us(lambda: K.fused_mask_bits(*p)),
-            # 3 B/px read, the bit plane written
-            **bound(3 * n_px + gm.map_h * ((gm.map_w + 7) // 8), OPS_PER_PX["fused_mask"] * n_px),
-        }
-        print(f"kernels: fused_mask {gm.map_h}x{gm.map_w} exact; " + timing_line(times[h]), flush=True)
+        rich = marker_rich(gm.map_h, gm.map_w)
+        check_mask(rich, f"{gm.map_h}x{gm.map_w} marker-rich, main-path layout", flat_planes(rich, dev))
+        for name, rgb in ins.items():
+            p, _ = check_mask(rgb, f"{gm.map_h}x{gm.map_w} {name}, main-path layout", flat_planes(rgb, dev))
+            share = mask_share(rgb)
+            base, hsv_ops = CLASSIFY_OPS["fused_mask"]
+            t = {
+                "ms": cuda_ms(lambda: K.fused_mask_bits(*p)),
+                "plain_ms": cuda_ms(lambda: K.fused_mask_bits_plain(*p)),
+                "device_us": device_us(lambda: K.fused_mask_bits(*p)),
+                # 3 B/px read, the bit plane written
+                **bound(3 * n_px + gm.map_h * ((gm.map_w + 7) // 8), (base + hsv_ops * share) * n_px),
+            }
+            print(f"kernels: fused_mask {gm.map_h}x{gm.map_w} {name} (main-path layout; {100 * share:.2f} % of "
+                  f"pixels pass the max-byte mask) exact; " + timing_line(t), flush=True)
+            if name == "random":
+                times[h] = t
     results["fused_mask"] = {
         "name": "fused_mask", "route": "cuda",
         "source": "smh_tpu_torch/csrc/fused_mask.cu",

@@ -45,11 +45,15 @@ _I64 = ctypes.c_int64
 
 # C signatures of the entry points (every pointer and the stream as void*).
 _SIGNATURES = {
-    # (r, g, b, marker, luma, n, params, stream)
+    # () -> bytes of the classify tables
+    "smh_classify_tables_bytes": [],
+    # (tables, params, stream)
+    "smh_classify_tables": [_VP, _VP, _VP],
+    # (r, g, b, marker, luma, n, tables, stream)
     "smh_classify_luma": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP],
     # (p0, p1, p2, scratch, out, B, H, W, stream)
     "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # (r, g, b, bits, H, W, params, stream)
+    # (r, g, b, bits, H, W, tables, stream)
     "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP],
     # (mask, H, W, pts, B, cos, sin, N, max_gap, k_total, end_x, end_y,
     #  best_x, best_y, best_len, stream)

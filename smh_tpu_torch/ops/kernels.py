@@ -11,10 +11,17 @@ path went through the kernels.
 
 * classify_luma_planes -> csrc/classify_luma.cu
   Replaces pallas_kernels.py::_classify_luma_kernel
-  (classify_luma_pallas_planes). Bound by bytes: 3 read + 2 written per
-  pixel at ~40 flops. One coalesced elementwise pass, one thread per pixel;
-  __f*_rn intrinsics keep it bit-exact with the oracle (no FMA contraction,
-  correctly rounded division).
+  (classify_luma_pallas_planes). 3 bytes read + 2 written per pixel, but
+  bound on the card by the launch and the blocks' ramp, and where pixels
+  pass the max-byte mask by the classify's issue, not by those bytes.
+  csrc/classify.cuh classifies from shared tables (k/255, the colour tests
+  by truncated h, s and max byte) with no division for a pixel whose max
+  byte no colour's value test passes and two past it; each thread takes 4
+  pixels as aligned 32-bit words of each plane (__funnelshift_r where a
+  plane starts unaligned) and stores word-wide. Every float op is rounded
+  once (no FMA contraction) and every division correctly rounded, so it is
+  bit-exact with the oracle. The tables are built once per device
+  (_classify_tables).
 * minimap_rect_planes -> csrc/quiet_walk.cu
   Replaces pallas_kernels.py::_quiet_walk_kernel_factory and the walk tail
   of _rect_pallas_batched (minimap_rect_pallas_planes). Bound by bytes (the
@@ -26,17 +33,24 @@ path went through the kernels.
   the result.
 * fused_mask_bits -> csrc/fused_mask.cu
   Replaces pallas_kernels.py::_fused_mask_kernel + _fused_mask_kernel_hbm
-  (fused_mask_bits_pallas). Bound by bytes: 3 read per pixel, 1/8 written;
-  classify -> L1 dilate -> MSB-first pack from a shared-memory tile with a
-  1-px halo, so the marker mask never reaches device memory. Pad bits are
-  zero, as in the XLA path (the Pallas kernel sets them where a marker
-  touches the last column of a ragged row).
+  (fused_mask_bits_pallas). 3 bytes read per pixel, 1/8 written, but bound
+  on the card by the launch and each block's chain of dependent phases, and
+  where pixels pass the max-byte mask by the classify's issue, not by those
+  bytes. classify -> L1 dilate -> MSB-first pack: a warp classifies 32
+  pixels of a row and packs them with one ballot into a shared tile of
+  marker words (TH + 2 rows, so only the row halo is classified twice);
+  the dilate runs on words with carry bits, so the marker mask never
+  reaches device memory. Pad bits are zero, as in the XLA path (the Pallas
+  kernel sets them where a marker touches the last column of a ragged
+  row).
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
+import numpy as np
 import torch
 
 from .. import _build, consts as C
@@ -50,9 +64,10 @@ FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask")
 # the seams the tests and the chip smoke place their shapes around.
 QUIET_TILE_H = 32
 QUIET_TILE_W = 64
-# Tile of the fused mask kernel (TH rows x TW pixels in csrc/fused_mask.cu).
-FUSED_TILE_H = 8
-FUSED_TILE_W = 256
+# Tile of the fused mask kernel (TH rows x TW = 32 * WPR pixels in
+# csrc/fused_mask.cu).
+FUSED_TILE_H = 16
+FUSED_TILE_W = 128
 
 
 def reset_launches() -> None:
@@ -92,6 +107,55 @@ _CLASSIFY_PARAMS = (ctypes.c_int * 14)(
 )
 
 
+_COLOURS = (C.ALPHA_MARKER_COLOR_HSV, C.BRAVO_MARKER_COLOR_HSV, C.CHARLIE_MARKER_COLOR_HSV)
+
+
+def classify_tables_plain() -> np.ndarray:
+    """Plain twin of the table kernel (csrc/classify.cuh, ClassifyTables):
+    u8 bytes of f32 unit[256] = k / 255 (numpy's f32 division is correctly
+    rounded, as __fdiv_rn is), then by max byte, (int)s and (int)h the bits
+    of the colours whose value, saturation (with min_sat) and hue tests
+    pass."""
+    unit = np.arange(256, dtype=np.float32) / np.float32(255)
+    vi = (np.float32(100) * unit).astype(np.int32)
+    k = np.arange(361)
+    vib, sat, hue = np.zeros(256, np.uint8), np.zeros(104, np.uint8), np.zeros(376, np.uint8)
+    for c, (h, s, v) in enumerate(_COLOURS):
+        vib |= (np.abs(vi - v) <= C.FIND_MARKER_HSV_VIB_TOLERANCE).astype(np.uint8) << c
+        ks = k[:101]
+        sat_ok = (np.abs(ks - s) <= C.FIND_MARKER_HSV_SAT_TOLERANCE) | (
+            np.abs(ks - (s - C.FIND_MARKER_PLAYER_DIR_ARC_SAT)) <= C.FIND_MARKER_HSV_SAT_TOLERANCE
+        )
+        sat[:101] |= (sat_ok & (ks >= C.FIND_MARKER_HSV_MIN_SAT)).astype(np.uint8) << c
+        hue[:361] |= (np.abs(k - h) <= C.FIND_MARKER_HSV_HUE_TOLERANCE).astype(np.uint8) << c
+    return np.concatenate([unit.view(np.uint8), vib, sat, hue])
+
+
+_tables: dict = {}  # device index -> (tables, the stream that built them, its event)
+_tables_lock = threading.Lock()
+
+
+def _classify_tables(lib, device: torch.device) -> torch.Tensor:
+    """The tables kernels 1 and 3 classify with (csrc/classify.cuh: k/255,
+    the max-byte mask and the colour tests), on this device. One launch
+    builds them from the 14 params at first use, no host sync; a stream
+    other than the one that built them waits for that launch's event."""
+    stream = torch.cuda.current_stream(device)
+    with _tables_lock:
+        entry = _tables.get(device.index)
+        if entry is None:
+            tables = torch.empty(lib.smh_classify_tables_bytes(), dtype=torch.uint8, device=device)
+            code = lib.smh_classify_tables(tables.data_ptr(), ctypes.addressof(_CLASSIFY_PARAMS), stream.cuda_stream)
+            _build.check(code, "smh_classify_tables")
+            built = torch.cuda.Event()
+            built.record(stream)
+            entry = _tables[device.index] = (tables, stream.cuda_stream, built)
+    tables, built_on, built = entry
+    if stream.cuda_stream != built_on:
+        stream.wait_event(built)
+    return tables
+
+
 def classify_luma_planes_plain(r8, g8, b8):
     """Plain PyTorch twin of the classify kernel: (marker u8 0/1, luma u8)."""
     from . import hsv
@@ -115,7 +179,7 @@ def classify_luma_planes(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor):
         code = lib.smh_classify_luma(
             r8.data_ptr(), g8.data_ptr(), b8.data_ptr(),
             marker.data_ptr(), luma.data_ptr(), r8.numel(),
-            ctypes.addressof(_CLASSIFY_PARAMS), _stream_ptr(r8),
+            _classify_tables(lib, device).data_ptr(), _stream_ptr(r8),
         )
     _build.check(code, "smh_classify_luma")
     LAUNCHES["classify_luma"] += 1
@@ -185,7 +249,7 @@ def fused_mask_bits(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor) -> tor
     with torch.cuda.device(device):
         code = lib.smh_fused_mask(
             r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w,
-            ctypes.addressof(_CLASSIFY_PARAMS), _stream_ptr(r8),
+            _classify_tables(lib, device).data_ptr(), _stream_ptr(r8),
         )
     _build.check(code, "smh_fused_mask")
     LAUNCHES["fused_mask"] += 1

@@ -94,7 +94,7 @@ def test_plain_twin_matches_pallas_on_random_pixels():
 
 def test_plain_twin_matches_pallas_across_the_band_seam():
     """tests/test_pallas.py's solid box across the Pallas kernel's 256-row
-    band seam (and the CUDA kernel's 8-row tile seams)."""
+    band seam (and the CUDA kernel's 16-row tile seams)."""
     rgb = np.full((520, 264, 3), 40, dtype=np.uint8)
     rgb[250:262, 100:140] = testing.ALPHA_MARKER_RGB
     bits_p = np.asarray(fused_mask_bits_pallas(jnp.asarray(rgb), interpret=True))
@@ -139,9 +139,123 @@ def test_no_launch_on_cpu_tensors():
 
 
 def test_tile_and_source_notes_match_the_cuda_source():
+    """The tile constants the tests and the chip smoke place their seams
+    around are the source's, and the source packs as the restatement below
+    does (ballot, __brev, __byte_perm 0x0123)."""
     src = (CSRC / "fused_mask.cu").read_text()
-    assert int(re.search(r"constexpr int TH = (\d+);", src).group(1)) == kernels.FUSED_TILE_H
-    tb = int(re.search(r"constexpr int TB = (\d+);", src).group(1))
-    assert 8 * tb == kernels.FUSED_TILE_W
+    assert int(re.search(r"constexpr int TH = (\d+);", src).group(1)) == kernels.FUSED_TILE_H == TH
+    wpr = int(re.search(r"constexpr int WPR = (\d+);", src).group(1))
+    assert "constexpr int TW = 32 * WPR;" in src
+    assert 32 * wpr == kernels.FUSED_TILE_W == TW and TH >= 16
     assert "_fused_mask_kernel" in src and '#include "classify.cuh"' in src
+    assert "__ballot_sync(FULL" in src and "__byte_perm(__brev(d), 0, 0x0123)" in src
     assert '#include "classify.cuh"' in (CSRC / "classify_luma.cu").read_text()
+
+
+# -- the CUDA kernel's word dilate and pack (csrc/fused_mask.cu), restated ----
+
+TH, TW = kernels.FUSED_TILE_H, kernels.FUSED_TILE_W
+WPR = TW // 32
+M32 = 0xFFFFFFFF
+
+
+def _brev(x: np.ndarray) -> np.ndarray:
+    """__brev: bit i -> bit 31 - i."""
+    x = x.astype(np.uint64)
+    for shift, mask in ((1, 0x55555555), (2, 0x33333333), (4, 0x0F0F0F0F), (8, 0x00FF00FF)):
+        x = ((x >> shift) & mask) | ((x & mask) << shift)
+    return ((x >> 16) | (x << 16)) & M32
+
+
+def _byte_perm(x: np.ndarray, y: int, selector: int) -> np.ndarray:
+    """__byte_perm: byte n of the result is byte (selector >> 4n) & 7 of the
+    eight bytes y:x."""
+    src = x.astype(np.uint64) | (np.uint64(y) << np.uint64(32))
+    out = np.zeros(x.shape, np.uint64)
+    for n in range(4):
+        out |= ((src >> np.uint64(8 * ((selector >> (4 * n)) & 7))) & np.uint64(0xFF)) << np.uint64(8 * n)
+    return out
+
+
+def _ballots(marker: np.ndarray, y: int, xs: np.ndarray) -> np.ndarray:
+    """One warp ballot per x in xs: bit i = marker[y, x + i]; lanes at or
+    past W and rows outside the plane vote 0."""
+    h, w = marker.shape
+    words = np.zeros(xs.shape, np.uint64)
+    if 0 <= y < h:
+        for i in range(32):
+            x = xs + i
+            votes = np.zeros(xs.shape, bool)
+            votes[x < w] = marker[y, x[x < w]]
+            words |= votes.astype(np.uint64) << np.uint64(i)
+    return words
+
+
+def _fused_restated(marker: np.ndarray) -> np.ndarray:
+    """fused_mask.cu tile by tile on a bool [H, W] marker plane: ballot
+    words of TH + 2 staged rows, the pixels one past each tile edge, the
+    word dilate with carry bits, bits at x >= W masked, MSB-first bytes by
+    __byte_perm(__brev(word), 0, 0x0123), a row's bytes cut at ceil(W/8)."""
+    h, w = marker.shape
+    bpr = (w + 7) // 8
+    out = np.zeros((h, bpr), np.uint8)
+    js = np.arange(WPR)
+    for y0 in range(0, h, TH):
+        for x0 in range(0, w, TW):
+            m = np.stack([_ballots(marker, y0 - 1 + r, x0 + 32 * js) for r in range(TH + 2)])
+            edge = np.array([[0 <= y0 - 1 + r < h and 0 <= x < w and marker[y0 - 1 + r, x] for r in range(TH + 2)]
+                             for x in (x0 - 1, x0 + TW)], dtype=np.uint64)
+            c = m[1:-1]
+            left = np.concatenate([edge[0, 1:-1, None], c[:, :-1] >> np.uint64(31)], axis=1)
+            right = np.concatenate([(c[:, 1:] << np.uint64(31)) & M32, edge[1, 1:-1, None] << np.uint64(31)], axis=1)
+            d = c | m[:-2] | m[2:] | ((c << np.uint64(1)) & M32) | left | (c >> np.uint64(1)) | right
+            valid = np.clip(w - (x0 + 32 * js), 0, 32).astype(np.uint64)
+            d &= (np.uint64(1) << valid) - np.uint64(1)
+            word_bytes = _byte_perm(_brev(d), 0, 0x0123)
+            for r in range(min(TH, h - y0)):
+                for j in range(WPR):
+                    xb = (x0 + 32 * j) // 8
+                    for k in range(max(0, min(4, bpr - xb))):
+                        out[y0 + r, xb + k] = (int(word_bytes[r, j]) >> (8 * k)) & 0xFF
+    return out
+
+
+def test_restated_bit_intrinsics():
+    x = np.array([1, 0x80000000, 0x12345678, M32], dtype=np.uint64)
+    assert _brev(x).tolist() == [0x80000000, 1, 0x1E6A2C48, M32]
+    assert _byte_perm(np.array([0x11223344], np.uint64), 0, 0x0123).tolist() == [0x44332211]
+    # pixel 0 alone -> bit 0 of the word -> the MSB of the first byte in memory
+    assert _byte_perm(_brev(np.array([1], np.uint64)), 0, 0x0123).tolist() == [0x80]
+
+
+@pytest.mark.parametrize("w", [13, 21, 37, 263, 987, 1973])
+def test_restated_word_pack_at_ragged_widths(w):
+    """Ragged widths (W % 8 != 0, W % 32 != 0) with markers down the last
+    column: the restated kernel equals the twin and the XLA bytes, pad bits
+    zero."""
+    rgb = _marker_rich((2 * TH + 5, w), w)
+    rgb[:, w - 1][::3] = testing.ALPHA_MARKER_RGB
+    marker = pixmath.is_any_map_marker_color(rgb)
+    got = _fused_restated(marker)
+    np.testing.assert_array_equal(got, _twin(rgb))
+    np.testing.assert_array_equal(got, np.asarray(_xla_bits(rgb)))
+    if w % 8:
+        assert not (got[:, -1] & ((1 << (8 - w % 8)) - 1)).any()
+
+
+@pytest.mark.parametrize(
+    "shape", [(TH - 1, TW - 1), (TH, TW), (TH + 1, TW + 1), (2 * TH + 1, 2 * TW + 3), (3 * TH - 1, TW + 33)]
+)
+def test_restated_word_pack_across_tile_seams(shape):
+    """Marker boxes across the row seam, the column seam, a word seam inside
+    the tile and the corners: the restated kernel equals the twin and the
+    XLA bytes."""
+    h, w = shape
+    rgb = np.full((h, w, 3), 40, dtype=np.uint8)
+    rgb[max(TH - 2, 0) : TH + 2, TW - 3 : min(TW + 3, w)] = testing.ALPHA_MARKER_RGB
+    rgb[max(TH - 2, 0) : TH + 2, 30:34] = testing.ALPHA_MARKER_RGB
+    rgb[h - 1, w - 1] = rgb[0, 0] = rgb[h // 2, w - 1] = testing.ALPHA_MARKER_RGB
+    marker = pixmath.is_any_map_marker_color(rgb)
+    got = _fused_restated(marker)
+    np.testing.assert_array_equal(got, _twin(rgb))
+    np.testing.assert_array_equal(got, np.asarray(_xla_bits(rgb)))

@@ -99,7 +99,7 @@ COPIES = {
 DATA_FILES = ["consts.toml", "native/smhnative.cpp", "web/www/index.html"]
 # The port's own modules: the device half and the package's entry points.
 PORT_ONLY = {
-    "__init__.py", "_build.py", "probe_quiet_walk.py", "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
+    "__init__.py", "_build.py", "probe_classify.py", "probe_quiet_walk.py", "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "vision/__init__.py", "vision/cuda_backend.py",
 }
 

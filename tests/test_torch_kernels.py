@@ -16,6 +16,7 @@ import torch
 
 from smh_tpu.ops import pallas_kernels as pk
 from smh_tpu.ops import pipeline as opp
+from smh_tpu_torch import probe_classify
 from smh_tpu_torch import probe_quiet_walk as probe
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
@@ -233,6 +234,16 @@ def test_quiet_walk_probe_patches_apply(variant):
     src = probe.patched(probe.VARIANTS[variant])
     assert (src == (CSRC / "quiet_walk.cu").read_text()) == (not probe.VARIANTS[variant])
     assert "smh_quiet_walk" in src and "__global__" in src
+
+
+@pytest.mark.parametrize("variant", sorted(probe_classify.VARIANTS))
+def test_classify_probe_patches_apply(variant):
+    """Each variant of the classify / fused mask probe applies to the
+    sources as they are, and changes them (except the unpatched build)."""
+    texts = probe_classify.patched(CSRC, probe_classify.VARIANTS[variant])
+    same = all(texts[name] == (CSRC / name).read_text() for name in texts)
+    assert same == (not probe_classify.VARIANTS[variant])
+    assert "smh_classify_luma" in texts["classify_luma.cu"] and "smh_fused_mask" in texts["fused_mask.cu"]
 
 
 def test_sources_note_the_kernels_they_replace():
