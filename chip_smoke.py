@@ -25,9 +25,11 @@ each printing a line, each failing loudly:
                maps) and around its tile seams with B = 3, the fused mask
                kernel at ragged widths with markers in the last column and
                across its tile seams, the ray march on masks at both map
-               sizes with background seeds and seeds on drawn lines (B = 1
-               and 8, with and without max_len: ends and lengths
-               bit-equal); each with its wrapper's CUDA-event time beside
+               sizes with border, background and line seeds and lines
+               that touch the border (B = 1, 8 and 16, max_gap 15 and 31,
+               with and without max_len: ends, winners and lengths
+               bit-equal; one CUDA launch per call); each with its
+               wrapper's CUDA-event time beside
                its bound (bytes over 3.35 TB/s, operations over 67 T/s), its
                plain version's time, and its device time per call
                (profiler);
@@ -52,7 +54,8 @@ each printing a line, each failing loudly:
      engine  — lsd_engine="cuda" (the device ray march) gives markers
                within 1.5 px of the oracle;
   6. timing  — p50 of process() over warm frames at 1080p and 4K: smhocr's
-               device read with the native and the cuda LSD engine, and a
+               device read with the native and the cuda LSD engine (and
+               the latter's ray_march launches per frame), and a
                Tesseract-flagged engine on a static frame and over the drag;
                CUDA launches and device time per sync frame (profiler);
   7. loop    — CaptureThread -> VisionLoop delivers an update;
@@ -174,19 +177,31 @@ def bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def device_us(fn, n: int = 20) -> float:
-    """Device time per call of fn() (us): the rows of a torch.profiler trace
-    that ran on the card (kernels, memsets, copies), over n calls."""
+def device_profile(fn, n: int = 20, tries: int = 3) -> tuple:
+    """(device us per call, CUDA launches per call) of fn(): the rows of a
+    torch.profiler trace that ran on the card (kernels, memsets, copies),
+    over n calls. Every fn() launches on the card, so a trace with fewer
+    rows than calls lost some (the profiler does, now and then) and is
+    taken again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in rows) / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        launches = sum(e.count for e in rows)
+        if launches >= n:
+            break
+    return sum(e.self_device_time_total for e in rows) / n, launches / n
+
+
+def device_us(fn, n: int = 20) -> float:
+    """Device time per call of fn() (us)."""
+    return device_profile(fn, n)[0]
 
 
 def frame_for(w: int, h: int) -> np.ndarray:
@@ -512,9 +527,62 @@ def line_mask(h: int, w: int, lines) -> np.ndarray:
     return d.astype(np.uint8) * np.uint8(255)
 
 
+def ray_march_lines(w: int, h: int) -> list:
+    """The ray march's test lines for a frame size (map-ROI coordinates):
+    the verify frame's marker, a long diagonal, one line that ends on the
+    last column and one that touches the first column and the first row."""
+    from smh_tpu_torch import consts as C
+
+    k = w // 1920
+    (x0, y0), (x1, y1) = MARKER[0]
+    map_w = C.map_geometry(w, h).map_w
+    return [((x0 * k, y0 * k), (x1 * k, y1 * k)), ((30 * k, 700 * k), (900 * k, 60 * k)),
+            ((200 * k, 420 * k), (map_w - 1, 330 * k)), ((0, 500 * k), (400 * k, 0))]
+
+
+def ray_march_seeds(rng, mask: np.ndarray, b: int, edge: bool) -> np.ndarray:
+    """f32 [b, 2] (x, y) seeds: with `edge`, b // 4 on the plane's border
+    (corners, edge midpoints, the border ends of the lines: their rays leave
+    the plane at once); then half the rest on drawn lines and the others on
+    background pixels."""
+    h, w = mask.shape
+    border = [(0, 0), (w - 1, h - 1), (w - 1, 0), (0, h - 1), (w // 2, 0), (0, h // 2), (w - 1, h // 3),
+              (w // 3 + 0.5, h - 1)]
+    border += [(float(x), float(y)) for y, x in np.argwhere(mask == 255) if x in (0, w - 1) or y in (0, h - 1)]
+    n_edge = b // 4 if edge else 0
+    picked = [border[i] for i in rng.choice(len(border), n_edge, replace=False)]
+    white_y, white_x = np.nonzero(mask == 255)
+    black_y, black_x = np.nonzero(mask[::7, ::7] == 0)
+    n_line = (b - n_edge + 1) // 2
+    on_line = rng.choice(white_y.size, n_line, replace=False)
+    off_line = rng.choice(black_y.size, b - n_edge - n_line, replace=False)
+    return np.concatenate([
+        np.array(picked, np.float32).reshape(-1, 2),
+        np.stack([white_x[on_line], white_y[on_line]], axis=1),
+        np.stack([black_x[off_line] * 7, black_y[off_line] * 7], axis=1),
+    ]).astype(np.float32)
+
+
+def touched_mask_bytes(shape, pts_t, cos_t, sin_t, steps) -> int:
+    """The distinct mask bytes that steps 0 .. steps - 1 of each (seed,
+    angle) lane sample, steps i64 [B, N]: the in-plane positions' pixels,
+    each counted once however many lanes read it."""
+    h, w = shape
+    n = cos_t.numel()
+    flat = steps.flatten()
+    lane = torch.repeat_interleave(torch.arange(flat.numel(), device=flat.device), flat)
+    k = (torch.arange(lane.numel(), device=flat.device) - (torch.cumsum(flat, 0) - flat)[lane]).float()
+    px = pts_t[lane // n, 0] + cos_t[lane % n] * k
+    py = pts_t[lane // n, 1] + sin_t[lane % n] * k
+    inside = (px >= 0) & (py >= 0) & (px < w) & (py < h)
+    return int(torch.unique(py[inside].long() * w + px[inside].long()).numel())
+
+
 def phase_ray_march(dev: torch.device) -> dict:
     """Kernel 4 against its plain version: ends, winners and lengths
-    bit-equal, on the map shapes, background and line seeds."""
+    bit-equal, on the map shapes, with border, line and background seeds,
+    B = 1, 8 and 16, max_gap 15 and 31 (a run across a word seam), with and
+    without max_len; then its time and launches per call at B = 8."""
     from smh_tpu_torch import consts as C
     from smh_tpu_torch.ops import lsd as L
 
@@ -525,53 +593,56 @@ def phase_ray_march(dev: torch.device) -> dict:
     err = 0.0
     for w, h in ((1920, 1080), (3840, 2160)):
         gm = C.map_geometry(w, h)
-        k = w // 1920
-        (x0, y0), (x1, y1) = MARKER[0]
-        lines = [((x0 * k, y0 * k), (x1 * k, y1 * k)), ((30 * k, 700 * k), (900 * k, 60 * k))]
-        mask = line_mask(gm.map_h, gm.map_w, lines)
-        white_y, white_x = np.nonzero(mask == 255)
-        black_y, black_x = np.nonzero(mask[::7, ::7] == 0)
+        mask = line_mask(gm.map_h, gm.map_w, ray_march_lines(w, h))
         mask_t = torch.from_numpy(mask).to(dev)
         diag = float(np.hypot(*mask.shape)) + 1.0
-        for b in (1, 8):
-            on_line = rng.choice(white_y.size, (b + 1) // 2, replace=False)
-            off_line = rng.choice(black_y.size, b // 2, replace=False)
-            pts = np.concatenate([
-                np.stack([white_x[on_line], white_y[on_line]], axis=1),
-                np.stack([black_x[off_line] * 7, black_y[off_line] * 7], axis=1),
-            ]).astype(np.float32)
+        for b in (1, 8, 16):
+            pts = ray_march_seeds(rng, mask, b, edge=True)
             pts_t = torch.from_numpy(pts).to(dev)
-            for max_len in (None, diag):
-                k_total = L.step_bound(gm.map_h, gm.map_w, mg, max_len)
-                got = L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)
-                ex, ey = L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t)
-                want = (ex, ey, *L.finalize_plain(pts_t, ex, ey))
-                torch.cuda.synchronize()
-                for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got, want):
-                    err = max(err, float((g_ - w_).abs().max()))
-                    require(torch.equal(g_, w_), f"ray_march {name} != plain at {gm.map_h}x{gm.map_w} "
-                            f"B={b} max_len={max_len}")
-            longest = float(got[4].max().sqrt())
-            print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B={b} ({(b + 1) // 2} line, {b // 2} background "
-                  f"seeds) bit-equal with and without max_len; longest ray {longest:.2f} px", flush=True)
+            for gap in (mg, 31):
+                for max_len in (None, diag):
+                    k_total = L.step_bound(gm.map_h, gm.map_w, gap, max_len)
+                    got = L.ray_march(mask_t, pts_t, gap, k_total, cos_t, sin_t)
+                    ex, ey = L.march_plain(mask_t, pts_t, gap, k_total, cos_t, sin_t)
+                    want = (ex, ey, *L.finalize_plain(pts_t, ex, ey))
+                    torch.cuda.synchronize()
+                    for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got, want):
+                        err = max(err, float((g_ - w_).abs().max()))
+                        require(torch.equal(g_, w_), f"ray_march {name} != plain at {gm.map_h}x{gm.map_w} "
+                                f"B={b} max_gap={gap} max_len={max_len}")
+            at_start = int(((got[0] == pts_t[:, 0:1]) & (got[1] == pts_t[:, 1:2])).sum())
+            print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B={b} ({b // 4} border, {(b - b // 4 + 1) // 2} line, "
+                  f"rest background seeds) bit-equal at max_gap {mg} and 31, with and without max_len; longest "
+                  f"ray {float(got[4].max().sqrt()):.2f} px, {at_start} of {got[0].numel()} lanes end at their "
+                  f"start", flush=True)
+        pts_t = torch.from_numpy(ray_march_seeds(rng, mask, 8, edge=False)).to(dev)
         k_total = L.step_bound(gm.map_h, gm.map_w, mg, diag)
-        # The bytes this run's lanes must read: each lane samples the mask
-        # from its seed to its end and max_gap + 2 steps past it (1 B each);
-        # plus the ends (8 B per lane), the winners (12 B per seed), the seeds
-        # and the theta table. The march itself is bound by the latency of
-        # its dependent loads, not by these bytes.
-        ex, ey, *_ = L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)
-        steps = torch.hypot(ex - pts_t[:, 0:1], ey - pts_t[:, 1:2]).ceil() + mg + 2
-        nbytes = float(steps.sum()) + 8 * ex.numel() + 20 * pts_t.shape[0] + 8 * cos_t.numel()
+        got = L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)
+        ex, ey = L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t)
+        for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got,
+                                (ex, ey, *L.finalize_plain(pts_t, ex, ey))):
+            require(torch.equal(g_, w_), f"ray_march {name} != plain at {gm.map_h}x{gm.map_w} on the timed seeds")
+        # The samples this run's lanes must take: each from its seed to its
+        # end and max_gap + 2 steps past it; ~10 float32 operations each
+        # (two multiplies and two adds for the position, four compares for
+        # the plane, two casts). The bytes: the distinct mask bytes those
+        # samples read, the ends (8 B per lane), the winners (12 B per seed),
+        # the seeds and the theta table.
+        steps = torch.hypot(ex - pts_t[:, 0:1], ey - pts_t[:, 1:2]).ceil().long() + mg + 2
+        nbytes = (touched_mask_bytes(mask.shape, pts_t, cos_t, sin_t, steps) + 8 * ex.numel()
+                  + 20 * pts_t.shape[0] + 8 * cos_t.numel())
+        us, per_call = device_profile(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t))
+        require(per_call == 1.0, f"ray_march made {per_call} CUDA launches per call, not 1")
         times[h] = {
             "ms": cuda_ms(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)),
             "plain_ms": cuda_ms(
                 lambda: L.finalize_plain(pts_t, *L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t)), n=5),
-            "device_us": device_us(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)),
-            **bound(nbytes, 10 * float(steps.sum())),  # ~10 operations per sample
+            "device_us": us,
+            **bound(nbytes, 10 * float(steps.sum())),
         }
-        print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B=8 k_total={k_total}: " + timing_line(times[h]),
-              flush=True)
+        print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B=8 k_total={k_total}: {per_call:.0f} CUDA launch per "
+              f"call, longest ray {float(torch.hypot(ex - pts_t[:, 0:1], ey - pts_t[:, 1:2]).max()):.2f} px; "
+              + timing_line(times[h]), flush=True)
     return {
         "name": "ray_march", "route": "cuda",
         "source": "smh_tpu_torch/csrc/ray_march.cu",
@@ -946,6 +1017,7 @@ def phase_timing(dev: torch.device, card: str) -> None:
     On the main path's state, a torch.profiler trace of warm sync frames
     counts the CUDA launches (kernels, memsets and copies: the rows whose
     device_type is CUDA) and the device time per frame."""
+    from smh_tpu_torch.ops import kernels as K
     from smh_tpu_torch.ops import pipeline as opp
 
     for w, h in ((1920, 1080), (3840, 2160)):
@@ -962,10 +1034,13 @@ def phase_timing(dev: torch.device, card: str) -> None:
         state = new_state(dev)
         try:
             state.delegate.current().lsd_engine = "cuda"
-            samples, stages, res = _timed(state, static)
+            K.reset_launches()
+            samples, stages, res = _timed(state, static, warm=5)
+            marches = K.LAUNCHES["ray_march"] / (len(samples) + 5)
         finally:
             state.close()
-        print(f"timing: process() {w}x{h} lsd_engine=cuda {_summary(samples, stages)} on {card}", flush=True)
+        print(f"timing: process() {w}x{h} lsd_engine=cuda {_summary(samples, stages)}, {marches:.2f} ray_march "
+              f"launches per sync frame on {card}", flush=True)
         state = new_state(dev)
         try:
             samples, stages, res = _timed(state, static)

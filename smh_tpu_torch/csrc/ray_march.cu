@@ -1,13 +1,10 @@
 // Longest-line ray march: for each seed, 3600 rays (one per 0.1 degree),
 // each marched until it leaves the plane or crosses a gap of more than
-// max_gap non-white samples; then each seed's longest ray.
+// max_gap non-white samples; then each seed's longest ray. One launch.
 //
 // Replaces smh_tpu/ops/lsd.py::_march_span + _finalize (XLA ops, not a
-// Pallas kernel; entry find_longest_lines_batch), and is the reference's own
-// GPU shape (vision-gpu/cuda/cuda.cu:637-739: one thread per angle, a
-// data-dependent loop). The TPU version marches dense [B, N, K] spans with
-// windowed ANDs because a TPU has no cheap per-lane loop; a GPU thread does,
-// so each (seed, angle) lane runs the oracle's sequential state machine:
+// Pallas kernel; entry find_longest_lines_batch). Each (seed, angle) lane
+// follows the oracle's sequential state machine, bit for bit:
 //
 //   pos(k) = start + k * d, rounded twice (__fmul_rn, __fadd_rn: no FMA,
 //            the plain version's two roundings);
@@ -17,152 +14,379 @@
 //            the endpoint pos(k - max_gap - 1) (the closed form of
 //            lsd.py:147-152);
 //   at the first step out of the plane, the endpoint is that position less
-//            one step if its saturating-cast pixel is in the plane and black,
-//            else the start (lsd.py:154-167);
+//            one step if its saturating-cast pixel is in the plane and black
+//            (byte 0), else the start (lsd.py:154-167);
 //   a lane still alive after k_total steps keeps end = start, as a JAX lane
 //            still alive after its last span does (the caller passes the
 //            same span-rounded bound).
 //
 // Seeds lie inside the plane (the backend seeds from mask pixels), so a
-// ray's in-plane steps are a prefix of k (positions are monotone in k) and
-// the first out-of-plane step is the JAX `sum(inb)`.
+// ray's in-plane steps are a prefix of k (positions are monotone in k).
 //
-// The second kernel reduces each seed to the last angle with the largest
-// squared length (lsd.py:183-193) in one block: each thread keeps its best
-// (length, angle) with ties to the later angle, then a shared-memory tree
-// keeps the larger length, ties to the higher angle. Deterministic.
+// The design, for an H100 (where the simple version paid one L2 round trip
+// per step, since each step's test waited for its load):
 //
-// What bounds it on an H100: latency of dependent mask loads. The u8 mask
-// (0.8 MB at the 1080p map, 3.2 MB at 4K) sits in L2; background rays die
-// after max_gap + 1 samples, rays along a real line march its length. One
-// thread per lane, 128 lanes per block, B x 29 blocks; no shared memory in
-// the march. Simple and right first; the per-step loads are not coalesced.
+// * Words of 32 steps. A position does not depend on any loaded byte; only
+//   the stop does. So a word's 32 loads issue together and its samples
+//   become bit words (white, in the plane, byte 0). `word_event` finds the
+//   word's first event in step order with bit arithmetic: the gap run
+//   carried in from earlier words (a count), a run that starts inside the
+//   word (shift-and doubling, for max_gap + 1 <= 32), the first step out of
+//   the plane, and the k_total bound. The run count carries to the next
+//   word. One round trip per word, not per step.
+// * A thread a lane for the first LANE_CHUNKS words: background rays die
+//   within max_gap + 1 samples, so most lanes end in their first word.
+// * Survivors (rays along a line) go to their block's queue in shared
+//   memory. A seed's angles are split over a cluster of CLUSTER blocks, and
+//   its survivors bunch around the lines' directions, in one or two blocks:
+//   so every warp of the cluster takes survivors from the cluster's queues
+//   (distributed shared memory, one counter in block 0), one at a time.
+//   Lane l samples steps k0 + 32 w + l of WARP_WORDS words, `__ballot_sync`
+//   makes the words, their in-word runs are found side by side, and the
+//   warp takes their events in order as one thread would, while the next
+//   round's loads are in flight. A long ray pays one round trip per
+//   32 * WARP_WORDS steps.
+// * One launch per batch, one cluster per seed. Each lane's squared length
+//   and angle form a u64 key (f32 bits << 32 | angle; lengths are >= 0, so
+//   their bits order as integers, and the higher angle wins a tie, as
+//   finalize_plain's last argmax does). Each thread keeps the largest key
+//   of the lanes it finished, each warp reduces by shuffles, each block by
+//   a shared-memory atomicMax, and each block stores its key into block 0's
+//   shared memory (distributed shared memory); after one cluster barrier,
+//   block 0 takes the largest and reads the winner's end from L2 (another
+//   block may have written it). Deterministic. Two cluster barriers in
+//   all: one before the survivors, one before the result. Not a 64-bit
+//   atomicMax into block 0's key: through distributed shared memory it
+//   loses concurrent updates on the H100 (PERF.md §6).
+// * What bounds it: latency, not bytes (the u8 mask sits in L2; the bytes
+//   a call must read take ~0.3 us at 3.35 TB/s): the longest ray's warp
+//   rounds, then the launch and the two barriers. `probe_ray_march.py`
+//   splits a call that way and times other designs and constants as
+//   patches of this source (the fused pass's bit plane instead of the u8
+//   mask among them). The design and constants here are the fastest
+//   (PERF.md §6); the entry takes the u8 mask.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int LANE_THREADS = 128;
-constexpr int REDUCE_THREADS = 256;
+constexpr int CLUSTER = 8;        // blocks per seed: one thread block cluster
+constexpr int MAX_PER_BLOCK = 1024;  // angles a block holds in its queue
+constexpr int MAX_THREADS = 512;
+constexpr int WORD = 32;          // steps per word
+constexpr int LANE_CHUNKS = 1;    // words a thread marches alone
+constexpr int WARP_WORDS = 4;     // words a warp loads per round
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void ray_march_lanes(const uint8_t* __restrict__ mask, int H, int W,
-                                const float* __restrict__ pts,
-                                const float* __restrict__ cosv,
-                                const float* __restrict__ sinv, int N,
-                                int max_gap, int k_total,
-                                float* __restrict__ end_x,
-                                float* __restrict__ end_y) {
-  const int a = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (a >= N) return;
-  const float x0 = pts[2 * b];
-  const float y0 = pts[2 * b + 1];
-  const float dx = cosv[a];
-  const float dy = sinv[a];
-  const float fw = (float)W;
-  const float fh = (float)H;
-  const int window = max_gap + 1;
-  float ex = x0;
-  float ey = y0;
-  int run = 0;  // trailing non-white samples
-  for (int k = 0; k < k_total; ++k) {
-    const float kf = (float)k;
-    const float px = __fadd_rn(x0, __fmul_rn(dx, kf));
-    const float py = __fadd_rn(y0, __fmul_rn(dy, kf));
-    if (!(px >= 0.f && py >= 0.f && px < fw && py < fh)) {
-      // Out of the plane: the reference's final check with a saturating
-      // f32 -> u32 cast (negatives clamp to 0).
-      const int cxi = (int)fmaxf(px, 0.f);
-      const int cyi = (int)fmaxf(py, 0.f);
-      if (cxi < W && cyi < H && mask[(int64_t)cyi * W + cxi] == 0) {
-        ex = __fsub_rn(px, dx);
-        ey = __fsub_rn(py, dy);
-      }
-      break;
-    }
-    const bool white = mask[(int64_t)(int)py * W + (int)px] == 255;
-    run = white ? 0 : run + 1;
-    if (run >= window) {
-      const float ke = (float)(k - window);
-      ex = __fadd_rn(x0, __fmul_rn(dx, ke));
-      ey = __fadd_rn(y0, __fmul_rn(dy, ke));
-      break;
-    }
-  }
-  end_x[(int64_t)b * N + a] = ex;
-  end_y[(int64_t)b * N + a] = ey;
+struct Ray {
+  float x0, y0, dx, dy;
+};
+
+__device__ __forceinline__ float pos(float o, float d, int k) {
+  return __fadd_rn(o, __fmul_rn(d, (float)k));
 }
 
-__global__ void ray_march_reduce(const float* __restrict__ pts,
-                                 const float* __restrict__ end_x,
-                                 const float* __restrict__ end_y, int N,
-                                 float* __restrict__ best_x,
-                                 float* __restrict__ best_y,
-                                 float* __restrict__ best_len) {
-  __shared__ float s_len[REDUCE_THREADS];
-  __shared__ int s_idx[REDUCE_THREADS];
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
+// The byte at an in-range pixel.
+__device__ __forceinline__ uint32_t pixel(const uint8_t* __restrict__ mask, int W, int cx, int cy) {
+  return __ldg(mask + (int64_t)cy * W + cx);
+}
+
+// Step k of ray r: sets `in` (in the plane) and returns the byte at its
+// saturating-cast pixel (negatives clamp to 0), or 1 (neither black nor
+// white) past the plane's far edges.
+__device__ __forceinline__ uint32_t sample(const uint8_t* __restrict__ mask, int H, int W, const Ray& r, int k,
+                                           bool& in) {
+  const float px = pos(r.x0, r.dx, k);
+  const float py = pos(r.y0, r.dy, k);
+  in = px >= 0.f && py >= 0.f && px < (float)W && py < (float)H;
+  const int cx = (int)fmaxf(px, 0.f);
+  const int cy = (int)fmaxf(py, 0.f);
+  return (cx < W && cy < H) ? pixel(mask, W, cx, cy) : 1u;
+}
+
+enum : int { EV_NONE = 0, EV_GAP = 1, EV_OUT = 2, EV_ALIVE = 3 };
+
+// Steps k0 + S0 .. k0 + S1 - 1 of ray r into bits S0 .. S1 - 1 of the
+// words (white: in the plane and 255; in the plane; byte 0), every load
+// before any test.
+template <int S0, int S1>
+__device__ __forceinline__ void lane_word(const uint8_t* __restrict__ mask, int H, int W, const Ray& r, int k0,
+                                          uint32_t& white, uint32_t& inb, uint32_t& black) {
+  uint32_t v[S1 - S0];
+  bool in[S1 - S0];
+#pragma unroll
+  for (int s = S0; s < S1; ++s) v[s - S0] = sample(mask, H, W, r, k0 + s, in[s - S0]);
+#pragma unroll
+  for (int s = S0; s < S1; ++s) {
+    inb |= (uint32_t)in[s - S0] << s;
+    white |= (uint32_t)(in[s - S0] && v[s - S0] == 255u) << s;
+    black |= (uint32_t)(v[s - S0] == 0u) << s;
+  }
+}
+
+// Steps of a word (bit j = step k0 + j) that complete a run of `window`
+// non-white samples inside the word: bit j of the result is set iff bits
+// j - window + 1 .. j of nw are (shift-and doubling; none if window > 32).
+__device__ __forceinline__ uint32_t word_runs(uint32_t nw, int window) {
+  if (window > WORD) return 0u;
+  uint32_t t = nw;
+  int len = 1;
+#pragma unroll
+  for (int s = 0; s < 5; ++s) {
+    if (2 * len <= window) {
+      t &= t << len;
+      len *= 2;
+    }
+  }
+  if (len < window) t &= t << (window - len);
+  return t;
+}
+
+// The in-plane, in-bound steps of a word: the prefix before its first step
+// out of the plane (out) and before the bound (valid = k_total - k0).
+__device__ __forceinline__ uint32_t word_live(uint32_t inb, int valid, int& out) {
+  out = inb == FULL ? WORD : __ffs(~inb) - 1;  // in-plane steps are a prefix
+  const int lim = max(0, min(out, valid));
+  return lim >= WORD ? FULL : (1u << lim) - 1u;
+}
+
+// The first event of the word of steps k0 .. k0 + 31, in step order, from
+// its white and live words, its out-of-plane step and its in-word runs
+// (word_runs of ~white & live); carry counts the non-white samples just
+// before k0 (< window). Returns (kind, j): EV_GAP when step k0 + j
+// completes the run (endpoint pos(k0 + j - window)); EV_OUT when step
+// k0 + j is the first out of the plane; EV_ALIVE when the bound ends the
+// march first; EV_NONE with carry updated otherwise.
+__device__ __forceinline__ int word_event(uint32_t white, uint32_t live, int out, int valid, uint32_t runs,
+                                          int window, int& carry, int& j) {
+  // The run carried in reaches the window before the word's first white.
+  const int z = white ? __ffs(white) - 1 : WORD;
+  const int lim = __popc(live);
+  int g = window - 1 - carry;
+  if (g >= min(z, lim)) g = WORD;
+  if (runs) g = min(g, __ffs(runs) - 1);
+  if (g < WORD) {
+    j = g;
+    return EV_GAP;
+  }
+  if (out < WORD && out < valid) {
+    j = out;
+    return EV_OUT;
+  }
+  if (valid <= WORD) {
+    j = valid;
+    return EV_ALIVE;
+  }
+  carry = white ? __clz(white) : carry + WORD;
+  return EV_NONE;
+}
+
+// The lane's end for an event of `kind` at step k (zero: the byte of that
+// step's saturating-cast pixel is 0).
+__device__ __forceinline__ void event_end(const Ray& r, int kind, int k, bool zero, int window, float& ex,
+                                          float& ey) {
+  ex = r.x0;
+  ey = r.y0;
+  if (kind == EV_GAP) {
+    ex = pos(r.x0, r.dx, k - window);
+    ey = pos(r.y0, r.dy, k - window);
+  } else if (kind == EV_OUT && zero) {
+    ex = __fsub_rn(pos(r.x0, r.dx, k), r.dx);
+    ey = __fsub_rn(pos(r.y0, r.dy, k), r.dy);
+  }
+}
+
+__device__ __forceinline__ unsigned long long lane_key(const Ray& r, float ex, float ey, int a) {
+  const float lx = __fsub_rn(r.x0, ex);
+  const float ly = __fsub_rn(r.y0, ey);
+  const float len = __fadd_rn(__fmul_rn(lx, lx), __fmul_rn(ly, ly));
+  return ((unsigned long long)__float_as_uint(len) << 32) | (unsigned)a;
+}
+
+__device__ __forceinline__ unsigned long long max_key(unsigned long long a, unsigned long long b) {
+  return a > b ? a : b;
+}
+
+__global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
+ray_march_kernel(const uint8_t* __restrict__ mask, int H, int W, const float* __restrict__ pts,
+                 const float* __restrict__ cosv, const float* __restrict__ sinv, int N, int max_gap,
+                 int k_total, float* __restrict__ end_x, float* __restrict__ end_y,
+                 float* __restrict__ best_x, float* __restrict__ best_y, float* __restrict__ best_len) {
+  __shared__ int q_angle[MAX_PER_BLOCK];
+  __shared__ int q_k0[MAX_PER_BLOCK];
+  __shared__ int q_carry[MAX_PER_BLOCK];
+  __shared__ int q_count, q_head;
+  __shared__ unsigned long long s_key;
+  __shared__ unsigned long long s_keys[CLUSTER];  // block 0: each block's key
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int b = blockIdx.y;
+  const int per = (N + CLUSTER - 1) / CLUSTER;
+  const int a0 = blockIdx.x * per;
+  const int a1 = min(N, a0 + per);
+  const int window = max_gap + 1;
   const float x0 = pts[2 * b];
   const float y0 = pts[2 * b + 1];
-  const float* ex = end_x + (int64_t)b * N;
-  const float* ey = end_y + (int64_t)b * N;
-  float best = -1.f;
-  int besti = -1;
-  for (int a = t; a < N; a += REDUCE_THREADS) {
-    const float lx = __fsub_rn(x0, ex[a]);
-    const float ly = __fsub_rn(y0, ey[a]);
-    const float len = __fadd_rn(__fmul_rn(lx, lx), __fmul_rn(ly, ly));
-    if (len >= best) {  // a grows: ties go to the later angle
-      best = len;
-      besti = a;
-    }
+  float* ex_row = end_x + (int64_t)b * N;
+  float* ey_row = end_y + (int64_t)b * N;
+  if (threadIdx.x == 0) {
+    q_count = 0;
+    q_head = 0;
+    s_key = 0ull;
   }
-  s_len[t] = best;
-  s_idx[t] = besti;
   __syncthreads();
-  for (int s = REDUCE_THREADS / 2; s > 0; s >>= 1) {
-    if (t < s) {
-      const float hi = s_len[t + s];
-      const int ih = s_idx[t + s];
-      if (hi > s_len[t] || (hi == s_len[t] && ih > s_idx[t])) {
-        s_len[t] = hi;
-        s_idx[t] = ih;
+  unsigned long long key = 0ull;  // the best (length, angle) this thread finished
+
+  // -- a thread a lane for the first LANE_CHUNKS words --------------------------
+  for (int a = a0 + threadIdx.x; a < a1; a += blockDim.x) {
+    const Ray r{x0, y0, cosv[a], sinv[a]};
+    int k0 = 0, carry = 0, kind = EV_NONE, j = 0;
+    bool zero = false;
+    for (int c = 0; c < LANE_CHUNKS && kind == EV_NONE; ++c, k0 += WORD) {
+      if (k0 >= k_total) {
+        kind = EV_ALIVE;
+        break;
+      }
+      uint32_t white = 0, inb = 0, black = 0;
+      const int valid = k_total - k0;
+      int out;
+      lane_word<0, WORD>(mask, H, W, r, k0, white, inb, black);
+      const uint32_t live = word_live(inb, valid, out);
+      kind = word_event(white, live, out, valid, word_runs(~white & live, window), window, carry, j);
+      if (kind != EV_NONE) zero = (black >> min(j, WORD - 1)) & 1u;
+    }
+    if (kind == EV_NONE) {
+      const int slot = atomicAdd(&q_count, 1);
+      q_angle[slot] = a;
+      q_k0[slot] = k0;
+      q_carry[slot] = carry;
+      continue;
+    }
+    float ex, ey;
+    event_end(r, kind, k0 - WORD + j, zero, window, ex, ey);
+    ex_row[a] = ex;
+    ey_row[a] = ey;
+    key = max_key(key, lane_key(r, ex, ey, a));
+  }
+  cluster.sync();  // every block's queue is complete
+
+  // -- the survivors, a warp a ray, from the queues of the whole cluster ----------
+  // Item i of the cluster's queue is slot i - start[r] of block r's; lane r
+  // of each warp holds start[r] (r < CLUSTER).
+  const int lane = threadIdx.x & 31;
+  const int rank = (int)cluster.block_rank();
+  int count = 0;
+  if (lane < CLUSTER) count = *cluster.map_shared_rank(&q_count, lane);
+  int incl = count;
+#pragma unroll
+  for (int d = 1; d < CLUSTER; d <<= 1) {
+    const int up = __shfl_up_sync(FULL, incl, d);
+    if (lane >= d) incl += up;
+  }
+  const int start = incl - count;
+  const int total = __shfl_sync(FULL, incl, CLUSTER - 1);
+  // Each warp takes the next item from a counter, block 0's.
+  int* head = cluster.map_shared_rank(&q_head, 0);
+  for (;;) {
+    int next = 0;
+    if (lane == 0) next = atomicAdd(head, 1);
+    const int item = __shfl_sync(FULL, next, 0);
+    if (item >= total) break;
+    const int owner = __popc(__ballot_sync(FULL, lane > 0 && lane < CLUSTER && item >= start));
+    const int slot = item - __shfl_sync(FULL, start, owner);
+    const int a = *cluster.map_shared_rank(q_angle + slot, owner);
+    const Ray r{x0, y0, cosv[a], sinv[a]};
+    int k0 = *cluster.map_shared_rank(q_k0 + slot, owner);
+    int carry = *cluster.map_shared_rank(q_carry + slot, owner);
+    int kind = EV_NONE, j = 0;
+    bool zero = false;
+    uint32_t v[WARP_WORDS];
+    bool in[WARP_WORDS];
+#pragma unroll
+    for (int w = 0; w < WARP_WORDS; ++w) v[w] = sample(mask, H, W, r, k0 + w * WORD + lane, in[w]);
+    while (kind == EV_NONE) {
+      uint32_t vn[WARP_WORDS];
+      bool inn[WARP_WORDS];
+#pragma unroll
+      for (int w = 0; w < WARP_WORDS; ++w)  // the next round's loads, in flight while this round is tested
+        vn[w] = sample(mask, H, W, r, k0 + (WARP_WORDS + w) * WORD + lane, inn[w]);
+      uint32_t white[WARP_WORDS], live[WARP_WORDS], black[WARP_WORDS], runs[WARP_WORDS];
+      int out[WARP_WORDS];
+#pragma unroll
+      for (int w = 0; w < WARP_WORDS; ++w) {  // the words' runs are independent of the carry
+        const uint32_t inb = __ballot_sync(FULL, in[w]);
+        white[w] = __ballot_sync(FULL, in[w] && v[w] == 255u);
+        black[w] = __ballot_sync(FULL, v[w] == 0u);
+        live[w] = word_live(inb, k_total - (k0 + w * WORD), out[w]);
+        runs[w] = word_runs(~white[w] & live[w], window);
+      }
+#pragma unroll
+      for (int w = 0; w < WARP_WORDS; ++w) {
+        if (kind == EV_NONE) {
+          if (k0 >= k_total) {
+            kind = EV_ALIVE;
+            j = 0;
+          } else {
+            kind = word_event(white[w], live[w], out[w], k_total - k0, runs[w], window, carry, j);
+            if (kind != EV_NONE) zero = (black[w] >> min(j, WORD - 1)) & 1u;
+          }
+          k0 += WORD;
+        }
+      }
+      if (kind == EV_NONE) {  // k0 is the next round's first step
+#pragma unroll
+        for (int w = 0; w < WARP_WORDS; ++w) {
+          v[w] = vn[w];
+          in[w] = inn[w];
+        }
       }
     }
-    __syncthreads();
+    if (lane == 0) {
+      float ex, ey;
+      event_end(r, kind, k0 - WORD + j, zero, window, ex, ey);
+      ex_row[a] = ex;
+      ey_row[a] = ey;
+      key = max_key(key, lane_key(r, ex, ey, a));
+    }
   }
-  if (t == 0) {
-    const int i = s_idx[0];
-    best_x[b] = ex[i];
-    best_y[b] = ey[i];
-    best_len[b] = s_len[0];
+
+  // -- the seed's best: the largest key of the cluster, in block 0 ----------------
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) key = max_key(key, __shfl_xor_sync(FULL, key, d));
+  if (lane == 0) atomicMax(&s_key, key);
+  __syncthreads();
+  if (threadIdx.x == 0) *cluster.map_shared_rank(s_keys + rank, 0) = s_key;
+  cluster.sync();  // every end is written, every key is in, no block's memory is read after this
+  if (rank == 0 && threadIdx.x == 0) {
+    unsigned long long best = 0ull;
+    for (int r = 0; r < CLUSTER; ++r) best = max_key(best, s_keys[r]);
+    const int a = (int)(best & 0xffffffffu);
+    best_x[b] = __ldcg(ex_row + a);  // another block's lane, perhaps: read from L2
+    best_y[b] = __ldcg(ey_row + a);
+    best_len[b] = __uint_as_float((uint32_t)(best >> 32));
   }
 }
 
 }  // namespace
 
 // mask: u8 [H, W]; pts: f32 [B, 2] (x, y); cosv, sinv: f32 [N]; end_x,
-// end_y: f32 [B, N]; best_x, best_y, best_len: f32 [B]. Both kernels run on
-// `stream`, one after the other.
-extern "C" int smh_ray_march(const void* mask, int H, int W, const void* pts,
-                             int B, const void* cosv, const void* sinv, int N,
-                             int max_gap, int k_total, void* end_x, void* end_y,
-                             void* best_x, void* best_y, void* best_len,
-                             void* stream) {
+// end_y: f32 [B, N]; best_x, best_y, best_len: f32 [B]. One launch on
+// `stream`: B clusters of CLUSTER blocks.
+extern "C" int smh_ray_march(const void* mask, int H, int W, const void* pts, int B, const void* cosv,
+                             const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y,
+                             void* best_x, void* best_y, void* best_len, void* stream) {
   if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((N + LANE_THREADS - 1) / LANE_THREADS, B);
-  ray_march_lanes<<<grid, LANE_THREADS, 0, s>>>(
-      static_cast<const uint8_t*>(mask), H, W, static_cast<const float*>(pts),
-      static_cast<const float*>(cosv), static_cast<const float*>(sinv), N,
-      max_gap, k_total, static_cast<float*>(end_x), static_cast<float*>(end_y));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ray_march_reduce<<<B, REDUCE_THREADS, 0, s>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(end_x),
-      static_cast<const float*>(end_y), N, static_cast<float*>(best_x),
-      static_cast<float*>(best_y), static_cast<float*>(best_len));
+  const int per = (N + CLUSTER - 1) / CLUSTER;
+  if (per > MAX_PER_BLOCK || max_gap < 0 || k_total < 0) return (int)cudaErrorInvalidValue;
+  const int rounded = (per + 31) / 32 * 32;
+  const int threads = rounded < MAX_THREADS ? rounded : MAX_THREADS;
+  ray_march_kernel<<<dim3(CLUSTER, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), H, W, static_cast<const float*>(pts), static_cast<const float*>(cosv),
+      static_cast<const float*>(sinv), N, max_gap, k_total, static_cast<float*>(end_x), static_cast<float*>(end_y),
+      static_cast<float*>(best_x), static_cast<float*>(best_y), static_cast<float*>(best_len));
   return (int)cudaGetLastError();
 }

@@ -12,9 +12,10 @@ samples; each seed keeps the last angle with the largest squared length.
   bound memory; the chunking does not change a result.
 * `ray_march` is the wrapper: the plain version for a mask on the CPU, the
   hand-written kernel csrc/ray_march.cu for a mask on a CUDA device (one
-  thread per (seed, angle) lane running the sequential state machine, then
-  a block reduction per seed). Both sample pos(k) = start + k * d with two
-  roundings (no FMA), so their ends and lengths are bit-equal.
+  launch: the sequential state machine taken 32 steps a word, a thread a
+  lane and then a warp a surviving ray, and each seed's winner by a u64 key
+  max across a cluster of blocks). Both sample pos(k) = start + k * d with
+  two roundings (no FMA), so their ends and lengths are bit-equal.
 
 Both read one theta table, built once on the host in f32 (`theta_tables`),
 so the two never see different `cos`/`sin` roundings.

@@ -23,15 +23,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import hashlib
 import json
 import pathlib
-import subprocess
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _probe
 from .ops import kernels as K
 
 SOURCES = ("classify_luma.cu", "fused_mask.cu")
@@ -153,42 +151,12 @@ VARIANTS = {
 
 def patched(csrc: pathlib.Path, patches: dict) -> dict:
     """{file name: text} of the two sources and the shared header."""
-    texts = {}
-    for name in (*SOURCES, _HD):
-        text = (csrc / name).read_text()
-        for old, new in patches.get(name, ()):
-            if old not in text:
-                raise RuntimeError(f"probe patch does not apply to {name}: {old!r}")
-            text = text.replace(old, new)
-        texts[name] = text
-    return texts
+    return _probe.patched(csrc, (*SOURCES, _HD), patches)
 
 
 def build(builds: dict) -> dict:
     """{build: {file name: text}} -> {build: ctypes library}."""
-    nvcc = _build._nvcc()
-    jobs = {}
-    for name, texts in builds.items():
-        key = hashlib.sha256(json.dumps(texts, sort_keys=True).encode()).hexdigest()[:16]
-        d = _build.BUILD_ROOT / f"probe-{key}"
-        d.mkdir(parents=True, exist_ok=True)
-        for fname, text in texts.items():
-            (d / fname).write_text(text)
-        so = d / "libprobe.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(d), "-shared", "-o", str(so), *(str(d / s) for s in SOURCES)]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        for entry in (e for e in _build._SIGNATURES if hasattr(lib, e)):
-            fn = getattr(lib, entry)
-            fn.argtypes = _build._SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    return _probe.build(builds, SOURCES)
 
 
 def calls(lib, r8, g8, b8) -> dict:

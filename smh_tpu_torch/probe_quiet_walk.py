@@ -13,14 +13,12 @@ only time. Needs a CUDA device and nvcc:
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import subprocess
 
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, _probe
 
 SOURCE = _build.CSRC / "quiet_walk.cu"
 # (what the patch removes, text to find, replacement)
@@ -64,26 +62,7 @@ def patched(parts) -> str:
 
 def build_variants() -> dict:
     """{variant: ctypes library}; one nvcc per variant, all started together."""
-    nvcc = _build._nvcc()
-    jobs = {}
-    for name, parts in VARIANTS.items():
-        src = patched(parts)
-        d = _build.BUILD_ROOT / f"probe-{hashlib.sha256(src.encode()).hexdigest()[:16]}"
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "quiet_walk.cu").write_text(src)
-        so = d / "libprobe.so"
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-shared", "-o", str(so), str(d / "quiet_walk.cu")]
-        jobs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in jobs.items():
-        log, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        lib = ctypes.CDLL(str(so))
-        lib.smh_quiet_walk.argtypes = _build._SIGNATURES["smh_quiet_walk"]
-        lib.smh_quiet_walk.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    return _probe.build({name: {SOURCE.name: patched(parts)} for name, parts in VARIANTS.items()}, (SOURCE.name,))
 
 
 def device_us(lib, planes, calls: int = 50) -> dict:

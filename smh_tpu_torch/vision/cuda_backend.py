@@ -379,6 +379,7 @@ class CudaBackend:
         # Diff against the HOST MIRROR of the device-resident buffer, not the
         # previous frame: a loaded-but-never-dispatched frame must not become
         # the diff base.
+        inplace = False
         if fused:
             # In-place rolling pack+diff when the mirror is a private host
             # buffer (it rode a delta upload) and the previous load WAS
@@ -398,32 +399,38 @@ class CudaBackend:
                     if recycled is not None and recycled.size == total
                     else np.empty(total, dtype=np.uint8)
                 )
-            if not delta_eligible:
-                native.pack_diff(map_roi, btn_roi, packed, None, None, None)
-            elif inplace:
-                n = native.pack_diff_roll(map_roi, btn_roi, packed, self._dirty_scratch, scratch)
+        try:
+            if fused:
+                if not delta_eligible:
+                    native.pack_diff(map_roi, btn_roi, packed, None, None, None)
+                elif inplace:
+                    n = native.pack_diff_roll(map_roi, btn_roi, packed, self._dirty_scratch, scratch)
+                else:
+                    n = native.pack_diff(
+                        map_roi, btn_roi, packed, self._mirror, self._dirty_scratch, scratch
+                    )
             else:
-                n = native.pack_diff(
-                    map_roi, btn_roi, packed, self._mirror, self._dirty_scratch, scratch
+                packed = _pack_rois_bgr(
+                    map_roi, btn_roi, _DELTA_CHUNK,
+                    out=self._pack_pool.pop() if self._pack_pool else None,
                 )
-        else:
-            packed = _pack_rois_bgr(
-                map_roi, btn_roi, _DELTA_CHUNK,
-                out=self._pack_pool.pop() if self._pack_pool else None,
-            )
-            if delta_eligible:
-                n = native.diff_subchunks(packed, self._mirror, scratch)
+                if delta_eligible:
+                    n = native.diff_subchunks(packed, self._mirror, scratch)
 
-        delta = None
-        if delta_eligible:
-            if n == 0:
-                scratch[0] = 0  # flags may still differ: a no-op chunk 0
-                n = 1
-            bucket = _delta_bucket(n, n_sub)
-            if bucket is not None:
-                buf = self._staging(4 * bucket + bucket * _DELTA_SUB)
-                native.gather_subchunks(packed, scratch, n, bucket, buf.numpy())
-                delta = (buf, bucket, buf.numel())
+            delta = None
+            if delta_eligible:
+                if n == 0:
+                    scratch[0] = 0  # flags may still differ: a no-op chunk 0
+                    n = 1
+                bucket = _delta_bucket(n, n_sub)
+                if bucket is not None:
+                    buf = self._staging(4 * bucket + bucket * _DELTA_SUB)
+                    native.gather_subchunks(packed, scratch, n, bucket, buf.numpy())
+                    delta = (buf, bucket, buf.numel())
+        except BaseException:
+            if inplace:
+                self._drop_chain()  # the roll may have moved the mirror past the device
+            raise
         if delta is not None:
             self._pending = ("delta", *delta)
         else:
@@ -620,26 +627,12 @@ class CudaBackend:
             scales_band=band,
         )
         pending, self._pending = self._pending, None
-        if pending is not None and pending[0] == "delta":
-            _, buf, bucket, nbytes = pending
-            out = ops_pipeline.analyze_delta_flat(
-                self._resident, buf.to(self.device, non_blocking=True),
-                bucket=bucket, chunk=_DELTA_SUB, **kw,
-            )
-            self._resident = out.pop("resident")
-            self._retire_mirror(recyclable_next=True)
-            self.stats["delta_frames"] += 1
-            self.stats["h2d_bytes"] += nbytes
-        elif pending is not None:
-            # Full upload: seeds the delta chain for the next frame.
-            _, packed, nbytes = pending
-            stage = self._staging(packed.size)
-            stage.numpy()[...] = packed
-            self._resident = stage.to(self.device, non_blocking=True)
-            out = ops_pipeline.analyze_packed_flat(self._resident, **kw)
-            self._retire_mirror(recyclable_next=False)
-            self.stats["full_uploads"] += 1
-            self.stats["h2d_bytes"] += nbytes
+        if pending is not None:
+            try:
+                out = self._upload_and_pass(pending, kw)
+            except BaseException:
+                self._drop_chain()  # the mirror may hold bytes the device never got
+                raise
         else:
             # No pending upload (a re-dispatch with new flags): analyse the
             # buffer this frame was uploaded to (a view's own frame).
@@ -656,6 +649,39 @@ class CudaBackend:
             self._fetch = (host, event)
         else:
             self._fetch = (pack, None)
+
+    def _upload_and_pass(self, pending: tuple, kw: dict) -> dict:
+        """Apply the pending upload (delta or full), queue the fused pass and
+        advance the diff base to the dispatched frame."""
+        if pending[0] == "delta":
+            _, buf, bucket, nbytes = pending
+            out = ops_pipeline.analyze_delta_flat(
+                self._resident, buf.to(self.device, non_blocking=True),
+                bucket=bucket, chunk=_DELTA_SUB, **kw,
+            )
+            self._resident = out.pop("resident")
+            self._retire_mirror(recyclable_next=True)
+            self.stats["delta_frames"] += 1
+        else:
+            # Full upload: seeds the delta chain for the next frame.
+            _, packed, nbytes = pending
+            stage = self._staging(packed.size)
+            stage.numpy()[...] = packed
+            self._resident = stage.to(self.device, non_blocking=True)
+            out = ops_pipeline.analyze_packed_flat(self._resident, **kw)
+            self._retire_mirror(recyclable_next=False)
+            self.stats["full_uploads"] += 1
+        self.stats["h2d_bytes"] += nbytes
+        return out
+
+    def _drop_chain(self) -> None:
+        """Forget the delta chain after a failure between an in-place roll
+        and _retire_mirror: the host mirror may then be ahead of the
+        device, and a delta against it would leave rows stale on the
+        device. The next frame is a full upload."""
+        self._mirror = None
+        self._resident = None
+        self._mirror_recyclable = False
 
     def _retire_mirror(self, recyclable_next: bool) -> None:
         """Advance the diff base to the just-dispatched frame's pack buffer.

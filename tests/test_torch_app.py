@@ -24,6 +24,7 @@ from smh_tpu_torch.settings import Settings
 from smh_tpu_torch.squadex.capture import Frame, StaticSource
 from smh_tpu_torch.vision.reference import DebugView
 from smh_tpu_torch.vision import pipeline as tpipeline
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -14,8 +14,10 @@ from smh_tpu_torch import consts as C, testing
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pixmath
 from smh_tpu_torch.vision.reference import DebugView
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 W, H = 960, 540
 G = C.map_geometry(W, H)

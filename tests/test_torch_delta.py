@@ -18,8 +18,10 @@ from smh_tpu_torch import native
 from smh_tpu_torch import testing
 from smh_tpu_torch.ops import pipeline as tpp
 from smh_tpu_torch.vision import cuda_backend as cb
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 W, H = 1280, 720
 
@@ -118,6 +120,41 @@ def test_inplace_roll_reseed_after_dropped_frame():
     ref = make_backend("off")
     assert lines_tuples(lines) == lines_tuples(detect(ref, frame_with(9, brq_patch=True)))
     np.testing.assert_array_equal(hostpack(be), hostpack(ref))
+
+
+def test_failed_dispatch_drops_the_delta_chain(monkeypatch):
+    """A pass that raises after an in-place roll leaves the host mirror
+    ahead of the device. The backend must drop the chain, so that the next
+    frame is a full upload and no row stays stale on the device: the next
+    frames' hostpacks equal a fresh backend's on the same frames."""
+    be = make_backend("on")
+    detect(be, frame_with(0))  # full upload seeds the chain
+    detect(be, frame_with(3))  # delta: the mirror becomes a private buffer
+    assert be._mirror_recyclable
+    real = tpp.analyze_delta_flat
+    failures = []
+
+    def fails_once(*args, **kwargs):
+        if not failures:
+            failures.append(1)
+            raise RuntimeError("injected pass failure")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(cb.ops_pipeline, "analyze_delta_flat", fails_once)
+    be.load_frame(frame_with(6, brq_patch=True))  # rolls into the mirror
+    assert be._pending[0] == "delta" and be._pending_host is be._mirror
+    with pytest.raises(RuntimeError, match="injected"):
+        be.crop_to_map(True)
+    assert be._mirror is None and be._resident is None and not be._mirror_recyclable
+    full_uploads = be.stats["full_uploads"]
+    for i, f in enumerate((frame_with(9, brq_patch=True), frame_with(12, brq_patch=True), frame_with(5))):
+        lines = detect(be, f)
+        ref = make_backend("off")
+        assert lines_tuples(lines) == lines_tuples(detect(ref, f)), i
+        np.testing.assert_array_equal(hostpack(be), hostpack(ref), err_msg=f"frame {i}")
+        np.testing.assert_array_equal(be._resident.numpy(), ref._resident.numpy(), err_msg=f"frame {i}")
+    assert be.stats["full_uploads"] == full_uploads + 1 and be.stats["delta_frames"] == 3
+    assert failures
 
 
 def test_big_change_falls_back_to_full_upload():

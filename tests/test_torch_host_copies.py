@@ -40,8 +40,10 @@ from smh_tpu_torch.utils.plot import plot_line
 from smh_tpu_torch.vision import pipeline as tpipeline
 from smh_tpu_torch.vision.reference import ReferenceBackend
 from smh_tpu_torch.web import protocol
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JPKG, TPKG = ROOT / "smh_tpu", ROOT / "smh_tpu_torch"
@@ -99,7 +101,8 @@ COPIES = {
 DATA_FILES = ["consts.toml", "native/smhnative.cpp", "web/www/index.html"]
 # The port's own modules: the device half and the package's entry points.
 PORT_ONLY = {
-    "__init__.py", "_build.py", "probe_classify.py", "probe_quiet_walk.py", "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
+    "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
+    "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "vision/__init__.py", "vision/cuda_backend.py",
 }
 

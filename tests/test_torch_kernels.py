@@ -17,6 +17,7 @@ import torch
 from smh_tpu.ops import pallas_kernels as pk
 from smh_tpu.ops import pipeline as opp
 from smh_tpu_torch import probe_classify
+from smh_tpu_torch import probe_ray_march
 from smh_tpu_torch import probe_quiet_walk as probe
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
@@ -244,6 +245,15 @@ def test_classify_probe_patches_apply(variant):
     same = all(texts[name] == (CSRC / name).read_text() for name in texts)
     assert same == (not probe_classify.VARIANTS[variant])
     assert "smh_classify_luma" in texts["classify_luma.cu"] and "smh_fused_mask" in texts["fused_mask.cu"]
+
+
+@pytest.mark.parametrize("variant", sorted(probe_ray_march.VARIANTS))
+def test_ray_march_probe_patches_apply(variant):
+    """Each variant, check and ablation of the ray march probe applies to
+    the source as it is, and changes it (except the unpatched build)."""
+    src = probe_ray_march.patched(CSRC, probe_ray_march.VARIANTS[variant])["ray_march.cu"]
+    assert (src == (CSRC / "ray_march.cu").read_text()) == (not probe_ray_march.VARIANTS[variant])
+    assert "smh_ray_march" in src and "__global__" in src
 
 
 def test_sources_note_the_kernels_they_replace():

@@ -1,9 +1,13 @@
 """The device ray march (smh_tpu_torch/ops/lsd.py) against smh_tpu/ops/lsd.py
-on seeded masks, the CUDA kernel's sequential lane loop (re-stated here in
-numpy f32 scalars) against the plain span formulation, and the three LSD
-engines (CudaBackend "cuda" and "native", TpuBackend "tpu") on frames."""
+on seeded masks; the lane's sequential state machine and the CUDA kernel's
+word-at-a-time march and u64-key reduction (re-stated here in numpy)
+against the plain span formulation; and the three LSD engines (CudaBackend
+"cuda" and "native", TpuBackend "tpu") on frames. The kernel itself runs
+only on the card (chip_smoke.py)."""
 
 import math
+import pathlib
+import re
 
 import cv2
 import jax.numpy as jnp
@@ -18,8 +22,10 @@ from smh_tpu_torch.geometry import Point
 from smh_tpu_torch.ops import lsd as tlsd
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pixmath
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 MAX_GAP = int(C.LSD_MAX_GAP)
 
@@ -117,8 +123,9 @@ def test_plain_march_matches_jax(b, max_len):
 
 
 def _lane_loop(mask, x0, y0, dx, dy, max_gap, k_total):
-    """csrc/ray_march.cu's ray_march_lanes for one lane, in numpy f32
-    scalars (each op rounds once; no FMA)."""
+    """The lane's sequential state machine, one step at a time, in numpy
+    f32 scalars (each op rounds once; no FMA): what csrc/ray_march.cu's
+    word-at-a-time march must equal."""
     h, w = mask.shape
     f = np.float32
     run = 0
@@ -139,11 +146,11 @@ def _lane_loop(mask, x0, y0, dx, dy, max_gap, k_total):
 
 @pytest.mark.parametrize("max_gap,max_len", [(MAX_GAP, None), (MAX_GAP, 60.0), (0, None), (3, 40.0)])
 def test_kernel_lane_loop_equals_the_plain_version(max_gap, max_len):
-    """The kernel's sequential state machine, stated in numpy, gives the
+    """The lane's sequential state machine, stated in numpy, gives the
     plain span formulation's ends bit for bit on a sample of lanes (every
     7th angle), max_gap 0 and step bounds that cut live lanes included;
-    the block reduction's rule (largest length, ties to the higher angle)
-    equals finalize_plain's."""
+    the reduction's rule (largest length, ties to the higher angle) equals
+    finalize_plain's."""
     mask = _mask(5)
     pts = _seeds(mask, 3, seed=7)
     cos_t, sin_t = tlsd.theta_tables("cpu")
@@ -172,6 +179,203 @@ def test_plain_chunking_changes_nothing(monkeypatch):
     got = tlsd.ray_march(torch.from_numpy(mask), pts, MAX_GAP, k_total, cos_t, sin_t)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g, w)
+
+
+# -- csrc/ray_march.cu's word-at-a-time march, restated in numpy --------------------
+
+FULL = 0xFFFFFFFF
+
+
+def _cu_const(name: str) -> int:
+    """An integer constexpr of csrc/ray_march.cu."""
+    text = (pathlib.Path(tlsd.__file__).parent.parent / "csrc" / "ray_march.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+WORD = _cu_const("WORD")
+
+
+def _ffs0(x):
+    """Index of the lowest set bit of each 32-bit word (WORD for 0)."""
+    low = x & (~x + np.uint64(1))
+    return np.where(x == 0, WORD, np.frexp(low.astype(np.float64))[1] - 1)
+
+
+def _clz(x):
+    """Leading zeros of each 32-bit word (32 for 0)."""
+    return np.where(x == 0, 32, 32 - np.frexp(x.astype(np.float64))[1])
+
+
+def _word_event(white, inb, valid, window, carry):
+    """word_event of csrc/ray_march.cu on arrays of 32-bit words (bit j =
+    step k0 + j): (kind, j, carry after the word); kind 1 gap, 2 out of the
+    plane, 3 alive at the bound, 0 none."""
+    out = np.where(inb == FULL, WORD, _ffs0(~inb & FULL))
+    lim = np.minimum(out, valid)
+    live = np.where(lim >= WORD, FULL, (np.uint64(1) << lim.astype(np.uint64)) - np.uint64(1))
+    z = np.where(white != 0, _ffs0(white), WORD)
+    g = window - 1 - carry  # the run carried in
+    g = np.where(g >= np.minimum(z, lim), WORD, g)
+    if window <= WORD:  # a run that starts inside the word: shift-and doubling
+        t = ~white & live & FULL
+        n = 1
+        while 2 * n <= window:
+            t &= (t << np.uint64(n)) & FULL
+            n *= 2
+        if n < window:
+            t &= (t << np.uint64(window - n)) & FULL
+        g = np.where(t != 0, np.minimum(g, _ffs0(t)), g)
+    kind = np.where(g < WORD, 1, np.where((out < WORD) & (out < valid), 2, np.where(valid <= WORD, 3, 0)))
+    j = np.where(kind == 1, g, np.where(kind == 2, out, valid))
+    carry = np.where(white != 0, _clz(white), carry + WORD)
+    return kind, j, carry
+
+
+def _word_march(mask, pts, max_gap, k_total, cos_t, sin_t):
+    """The kernel's march over all (seed, angle) lanes: words of WORD steps,
+    every sample of a word taken before any test, the word's first event in
+    step order, the run of non-white samples carried to the next word as a
+    count. Its thread and warp phases (LANE_CHUNKS, WARP_WORDS) take the
+    same words in the same order, so they do not appear here."""
+    f32 = np.float32
+    h, w = mask.shape
+    window = max_gap + 1
+    x0, y0 = pts[:, 0:1, None], pts[:, 1:2, None]  # [B, 1, 1]
+    dx, dy = cos_t[None, :, None], sin_t[None, :, None]  # [1, N, 1]
+    shape = (pts.shape[0], cos_t.size)
+    ex = np.broadcast_to(pts[:, 0:1], shape).copy()
+    ey = np.broadcast_to(pts[:, 1:2], shape).copy()
+    carry = np.zeros(shape, np.int64)
+    done = np.zeros(shape, bool)
+    bit = np.uint64(1) << np.arange(WORD, dtype=np.uint64)
+    k0 = 0
+    while k0 < k_total and not done.all():
+        k = np.arange(k0, k0 + WORD).astype(f32)
+        px = x0 + dx * k  # f32: each op rounds once
+        py = y0 + dy * k
+        inb = (px >= 0) & (py >= 0) & (px < f32(w)) & (py < f32(h))
+        cx = np.maximum(px, f32(0)).astype(np.int64)
+        cy = np.maximum(py, f32(0)).astype(np.int64)
+        v = np.where((cx < w) & (cy < h), mask[np.minimum(cy, h - 1), np.minimum(cx, w - 1)], 1)
+        word = lambda b: (b.astype(np.uint64) * bit).sum(axis=-1, dtype=np.uint64)  # noqa: E731
+        white, in_w, black = word((v == 255) & inb), word(inb), word(v == 0)
+        kind, j, new_carry = _word_event(white, in_w, k_total - k0, window, carry)
+        act = ~done
+        ks = (k0 + j).astype(np.int64)
+        gap = act & (kind == 1)
+        gx = pts[:, 0:1] + cos_t[None, :] * (ks - window).astype(f32)
+        gy = pts[:, 1:2] + sin_t[None, :] * (ks - window).astype(f32)
+        zero = ((black >> np.minimum(j, WORD - 1).astype(np.uint64)) & np.uint64(1)) == 1
+        out = act & (kind == 2) & zero
+        ox = (pts[:, 0:1] + cos_t[None, :] * ks.astype(f32)) - cos_t[None, :]
+        oy = (pts[:, 1:2] + sin_t[None, :] * ks.astype(f32)) - sin_t[None, :]
+        ex = np.where(gap, gx, np.where(out, ox, ex))
+        ey = np.where(gap, gy, np.where(out, oy, ey))
+        done |= act & (kind != 0)
+        carry = np.where(done, carry, new_carry)
+        k0 += WORD
+    return ex, ey
+
+
+def _edge_mask(seed: int, density: float, h: int = 150, w: int = 230) -> np.ndarray:
+    """_mask's lines (one reaching the last column) over random white
+    specks of the given density: gaps of every length."""
+    rng = np.random.default_rng(seed)
+    mask = _mask(seed, h, w)
+    mask[rng.random((h, w)) < density] = 255
+    mask[rng.random((h, w)) < 0.02] = 7  # neither black nor white
+    return mask
+
+
+def _edge_seeds(mask: np.ndarray, seed: int) -> np.ndarray:
+    """Seeds on the plane's four edges and corners (rays leave the plane
+    mid-word) and on white pixels inside."""
+    h, w = mask.shape
+    edge = [(0, 0), (w - 1, h - 1), (0, h // 2), (w - 1, 7), (w // 3, 0), (w // 2 + 0.5, h - 1), (w - 1, 0)]
+    return np.concatenate([np.array(edge, np.float32), _seeds(mask, 3, seed)]).astype(np.float32)
+
+
+def _plain(mask, pts, max_gap, k_total):
+    cos_t, sin_t = tlsd.theta_tables("cpu")
+    ex, ey = tlsd.march_plain(torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t)
+    return ex.numpy(), ey.numpy()
+
+
+@pytest.mark.parametrize("max_gap", [0, 15, 31, 47])
+@pytest.mark.parametrize("density", [0.05, 0.45])
+def test_word_march_equals_the_plain_version(max_gap, density):
+    """The kernel's word-at-a-time march, restated in numpy, gives
+    march_plain's ends bit for bit on every lane: seeds on the plane's
+    edges, runs carried across word seams, rays that leave the plane
+    mid-word, and bounds that leave lanes alive (k_total 0, inside a word,
+    on a seam, and the span-rounded bound)."""
+    mask = _edge_mask(max_gap + int(100 * density), density)
+    pts = _edge_seeds(mask, max_gap)
+    cos_t, sin_t = (t.numpy() for t in tlsd.theta_tables("cpu"))
+    ends = {}
+    for k_total in (tlsd.step_bound(*mask.shape, max_gap, None), 45, 2 * WORD, 0):
+        ends[k_total] = _word_march(mask, pts, max_gap, k_total, cos_t, sin_t)
+        want = _plain(mask, pts, max_gap, k_total)
+        for g, w_ in zip(ends[k_total], want):
+            np.testing.assert_array_equal(g, w_, err_msg=f"k_total {k_total}")
+    for k_total, (ex, ey) in ends.items():
+        at_start = (ex == pts[:, 0:1]) & (ey == pts[:, 1:2])
+        assert at_start.all() if k_total == 0 else 0 < at_start.sum() < at_start.size, k_total
+
+
+@pytest.mark.parametrize("max_gap", [0, 15, 31, 47])
+def test_word_march_gaps_that_close_on_a_word_seam(max_gap):
+    """Angle 0 marches along a row at exact integer positions. A white run
+    of every length from the seed, then black: the gap completes at every
+    step offset around the word seams, and the model and march_plain agree
+    (the endpoint is pos(k - max_gap - 1) wherever k falls)."""
+    window = max_gap + 1
+    runs = list(range(0, 3 * WORD + 3))
+    h, w = len(runs), 4 * WORD + window + 8
+    mask = np.zeros((h, w), np.uint8)
+    for y, n in enumerate(runs):
+        mask[y, : n + 1] = 255
+    pts = np.stack([np.zeros(h), np.arange(h)], axis=1).astype(np.float32)
+    cos_t, sin_t = (t[::40].contiguous() for t in tlsd.theta_tables("cpu"))  # every 4th degree, 0 first
+    k_total = tlsd.step_bound(h, w, max_gap, None)
+    got = _word_march(mask, pts, max_gap, k_total, cos_t.numpy(), sin_t.numpy())
+    want = [t.numpy() for t in tlsd.march_plain(
+        torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t)]
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g, w_)
+    completes = np.array(runs) + window  # the step that completes the gap on angle 0
+    assert {int(c) % WORD for c in completes} == set(range(WORD))
+    np.testing.assert_array_equal(got[0][:, 0], np.array(runs, np.float32))  # end = last white pixel
+
+
+def test_u64_key_max_is_finalize_plains_winner():
+    """The kernel's reduction: each lane's key (f32 bits of its squared
+    length << 32 | angle), the max over blocks of the max over lanes, gives
+    finalize_plain's winner (the last angle with the largest length), ties
+    included; non-negative f32 bits order as the values do."""
+    rng = np.random.default_rng(3)
+    n = tlsd.N_ANGLES
+    per = -(-n // _cu_const("CLUSTER"))
+    pts = rng.integers(0, 50, (6, 2)).astype(np.float32)
+    ex = (pts[:, 0:1] + rng.integers(-3, 4, (6, n))).astype(np.float32)  # many equal lengths
+    ey = (pts[:, 1:2] + rng.integers(-3, 4, (6, n))).astype(np.float32)
+    ex[1], ey[1] = pts[1, 0], pts[1, 1]  # every length 0
+    ex[2, 17], ey[2, 17] = ex[2, 17] + 1000, ey[2, 17]  # one clear winner
+    ex[3] += rng.random(n).astype(np.float32)  # distinct lengths
+    lx, ly = pts[:, 0:1] - ex, pts[:, 1:2] - ey
+    lengths = lx * lx + ly * ly  # f32, one rounding each, as the kernel
+    keys = (lengths.view(np.uint32).astype(np.uint64) << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    blocks = [keys[:, i : i + per].max(axis=1) for i in range(0, n, per)]
+    best = np.max(blocks, axis=0)
+    angle = (best & np.uint64(FULL)).astype(np.int64)
+    want = [t.numpy() for t in tlsd.finalize_plain(*(torch.from_numpy(a) for a in (pts, ex, ey)))]
+    rows = np.arange(6)
+    np.testing.assert_array_equal(ex[rows, angle], want[0])
+    np.testing.assert_array_equal(ey[rows, angle], want[1])
+    np.testing.assert_array_equal((best >> np.uint64(32)).astype(np.uint32).view(np.float32), want[2])
+    assert angle[1] == n - 1 and angle[2] == 17
+    vals = np.sort(rng.random(1000).astype(np.float32) * 1e6)
+    assert (np.diff(vals.view(np.uint32).astype(np.int64)) >= 0).all()
 
 
 def test_find_longest_lines_batch_against_jax():

@@ -17,8 +17,10 @@ from smh_tpu_torch.ops import pipeline as tpp
 from smh_tpu_torch.ops import scales_device as tsd
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pixmath
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 # 960x540: the map's bit mask (25 KB) is above the 16 KiB windowing floor
 # and the quadrant's bit plane (6.4 KB) above the 4 KiB band floor.

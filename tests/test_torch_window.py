@@ -33,8 +33,10 @@ from smh_tpu_torch.settings import Settings
 from smh_tpu_torch.squadex.capture import Frame
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pipeline as tpipeline
+from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
+
 
 W, H = 960, 540
 G = C.map_geometry(W, H)
