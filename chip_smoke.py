@@ -70,7 +70,26 @@ each printing a line, each failing loudly:
                scale legend, SMH_SPARSE=0 and the gray band (window rungs
                and band gathers in the submit half, also under "error");
   9. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
-               pipelined with async scales, delivers an update and stops.
+               pipelined with async scales, delivers an update and stops;
+ 10. batch kernels — kernels 1-3 over a whole batch in one launch: B = 1, 3
+               and 8 frames cut from the rows of a [B, padded] buffer (and
+               rows one byte longer: odd frame strides) at the 1080p and 4K
+               map shapes, each torch.equal to its plain version and to the
+               per-frame kernel frame by frame; one kernel launch per
+               batched call (profiler rows); device us per call at B = 1, 3
+               and 8 and per frame;
+ 11. batch   — BatchPipeline(batch=8) with smhocr over the marker drag at
+               1080p and 4K: a full batch, then delta batches; results equal
+               to the per-frame VisionState's and to the oracle's; stream()
+               equals process(); CUDA launches per batch (profiler), H2D
+               bytes per batch, frames/s of process() and stream();
+ 12. warmup  — two child processes, with and without ops/warmup.py: the
+               first process() ms of each; after the warmup the first frame
+               builds nothing and launches no table kernel;
+ 13. worker  — WorkerClient at 1080p on the card: the ready event, a child
+               that imports neither jax nor smh_tpu, a recycle and the
+               recovery, results equal to the in-process state's; then the
+               CLI's App with --worker delivers an update.
 
 The last lines are a JSON object with the per-kernel results, the card's
 name and power limit, and {"ok": true, "device": {...}}. Any failed check
@@ -80,6 +99,7 @@ JAX nor the JAX package smh_tpu.
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -132,18 +152,27 @@ def tesseract_flagged():
     return TesseractFlagged()
 
 
-class sparse_off:
-    """SMH_SPARSE=0 (the window transport) for the duration of a block."""
+class environ:
+    """Environment variables set for the duration of a block."""
+
+    def __init__(self, **values):
+        self.values = values
 
     def __enter__(self):
-        self.before = os.environ.get("SMH_SPARSE")
-        os.environ["SMH_SPARSE"] = "0"
+        self.before = {k: os.environ.get(k) for k in self.values}
+        os.environ.update(self.values)
 
     def __exit__(self, *exc):
-        if self.before is None:
-            os.environ.pop("SMH_SPARSE", None)
-        else:
-            os.environ["SMH_SPARSE"] = self.before
+        for k, v in self.before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def sparse_off() -> environ:
+    """SMH_SPARSE=0 (the window transport) for the duration of a block."""
+    return environ(SMH_SPARSE="0")
 
 
 def card_line() -> str:
@@ -177,31 +206,57 @@ def bound(nbytes: float, ops: float) -> dict:
     return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def device_profile(fn, n: int = 20, tries: int = 3) -> tuple:
-    """(device us per call, CUDA launches per call) of fn(): the rows of a
-    torch.profiler trace that ran on the card (kernels, memsets, copies),
-    over n calls. Every fn() launches on the card, so a trace with fewer
-    rows than calls lost some (the profiler does, now and then) and is
-    taken again."""
+SPINS = 20  # spin kernels before and after each profiled run
+
+
+def device_profile(fn, n: int = 20, names=(), tries: int = 4) -> dict:
+    """torch.profiler over n calls of fn(), after one warm call. Per call:
+    `us`, the device time of the rows that ran on the card; `launches`,
+    those rows (kernels, memsets, copies); `kernels` and `kernel_us`, the
+    kernels among them and their time; `named`, {name: launches of the
+    kernels whose name holds `name`_kernel}. A trace loses the records
+    that come first (on an H100: 2 as a rule; after traces of thousands of
+    launches, up to all of them), so the calls sit between two runs of
+    SPINS spin kernels (torch.cuda._sleep), left out of every count. A
+    loss at either edge that reaches the calls takes at least SPINS spin
+    kernels with it, so a trace is taken again when it holds SPINS or
+    fewer, or fewer kernels than calls (every fn() launches one)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        for _ in range(SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for t in range(tries):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            spin()
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        launches = sum(e.count for e in rows)
-        if launches >= n:
+            spin()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum(e.count for e in events if "spin_kernel" in e.key)
+        rows = [e for e in events if "spin_kernel" not in e.key]
+        kernels = [e for e in rows if not e.key.startswith(("Memcpy", "Memset"))]
+        if spins > SPINS and sum(e.count for e in kernels) >= n:
             break
-    return sum(e.self_device_time_total for e in rows) / n, launches / n
+        print(f"device_profile: trace {t + 1} of {tries} held {spins} of {2 * SPINS} spin kernels and "
+              f"{sum(e.count for e in kernels)} kernels for {n} calls", flush=True)
+    return {
+        "us": sum(e.self_device_time_total for e in rows) / n,
+        "launches": sum(e.count for e in rows) / n,
+        "kernels": sum(e.count for e in kernels) / n,
+        "kernel_us": sum(e.self_device_time_total for e in kernels) / n,
+        "named": {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) / n for name in names},
+    }
 
 
 def device_us(fn, n: int = 20) -> float:
     """Device time per call of fn() (us)."""
-    return device_profile(fn, n)[0]
+    return device_profile(fn, n)["us"]
 
 
 def frame_for(w: int, h: int) -> np.ndarray:
@@ -631,7 +686,8 @@ def phase_ray_march(dev: torch.device) -> dict:
         steps = torch.hypot(ex - pts_t[:, 0:1], ey - pts_t[:, 1:2]).ceil().long() + mg + 2
         nbytes = (touched_mask_bytes(mask.shape, pts_t, cos_t, sin_t, steps) + 8 * ex.numel()
                   + 20 * pts_t.shape[0] + 8 * cos_t.numel())
-        us, per_call = device_profile(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t))
+        prof = device_profile(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t))
+        us, per_call = prof["us"], prof["launches"]
         require(per_call == 1.0, f"ray_march made {per_call} CUDA launches per call, not 1")
         times[h] = {
             "ms": cuda_ms(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t)),
@@ -681,6 +737,9 @@ def hostpacks_match(a: np.ndarray, b: np.ndarray, layout: dict) -> bool:
     return bool(sd.score_lanes()[ra != rb].all()) and int(np.abs(ra - rb).max()) <= 1
 
 
+ORACLE: dict = {}  # (w, h) -> summary of the oracle's result on frame_for(w, h), from phase_slice
+
+
 def phase_slice(dev: torch.device) -> dict:
     from smh_tpu_torch.squadex.capture import Frame
     from smh_tpu_torch import testing
@@ -720,6 +779,7 @@ def phase_slice(dev: torch.device) -> dict:
             ref = oracle_state.process(Frame(frame, 96))
         finally:
             oracle_state.close()
+        ORACLE[(w, h)] = summarize(ref)
         cpu_state = new_state("cpu")
         try:
             cpu_state.process(Frame(frame, 96))
@@ -1069,28 +1129,15 @@ def phase_timing(dev: torch.device, card: str) -> None:
 
 
 def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
-    """torch.profiler over `frames` warm sync process() calls: the CUDA rows
+    """device_profile over `frames` warm sync process() calls: the CUDA rows
     (kernels, memsets, copies) per frame, the kernels among them, the quiet
     walk's launches, and the device time per frame."""
-    from torch.profiler import ProfilerActivity, profile
-
     from smh_tpu_torch.squadex.capture import Frame
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            state.process(Frame(frame_np, 96))
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-    require(rows, "the profiler saw no device rows")
-    kernels = [e for e in rows if not e.key.startswith(("Memcpy", "Memset"))]
-    return {
-        "frames": frames,
-        "launches": sum(e.count for e in rows) / frames,
-        "kernels": sum(e.count for e in kernels) / frames,
-        "quiet_walk": sum(e.count for e in kernels if "quiet_walk" in e.key) / frames,
-        "device_ms": sum(e.self_device_time_total for e in rows) / frames / 1e3,
-    }
+    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=("quiet_walk",))
+    require(prof["launches"] > 0, "the profiler saw no device rows")
+    return {"frames": frames, "launches": prof["launches"], "kernels": prof["kernels"],
+            "quiet_walk": prof["named"]["quiet_walk"], "device_ms": prof["us"] / 1e3}
 
 
 def phase_loop(dev: torch.device) -> None:
@@ -1115,11 +1162,13 @@ def phase_loop(dev: torch.device) -> None:
           f"ratio {got.meters_to_px_ratio:.6f}", flush=True)
 
 
-def drag_frames(w: int, h: int, pan: bool = False) -> list:
+@functools.lru_cache(maxsize=None)
+def drag_frames(w: int, h: int, pan: bool = False) -> tuple:
     """A marker drag: the far end moves 8 px right and 5 px up per frame
     (at 1080p scale). pan=True also moves the scale legend 2 px right per
     frame, so the scales checksum changes every frame and the scales
-    images stay inline (a static legend drops to checksum-only)."""
+    images stay inline (a static legend drops to checksum-only). Made once
+    per process: the phases only read them."""
     from smh_tpu_torch import testing
 
     k = w // 1920
@@ -1133,7 +1182,7 @@ def drag_frames(w: int, h: int, pan: bool = False) -> list:
             scale_texts=[("300m", (sx, 170 * k))],
             scale_bars=[(sx, 170 * k + 30, 120 * k, 1)],
         ))
-    return frames
+    return tuple(frames)
 
 
 def summarize(r) -> tuple:
@@ -1144,17 +1193,24 @@ def summarize(r) -> tuple:
     )
 
 
-def _truth(dev: torch.device, frames: list, engine_factory=None) -> dict:
-    """{summary of the synchronous result: frame index} over `frames`."""
+_TRUTHS: dict = {}  # (device, id(frames), engine_factory) -> (frames, truth)
+
+
+def _truth(dev: torch.device, frames: tuple, engine_factory=None) -> dict:
+    """{summary of the synchronous result: frame index} over `frames` (once
+    per process for each drag and engine)."""
     from smh_tpu_torch.squadex.capture import Frame
 
-    state = new_state(dev, engine=engine_factory() if engine_factory else None)
-    try:
-        truth = {summarize(state.process(Frame(f, 96))): i for i, f in enumerate(frames)}
-    finally:
-        state.close()
-    require(len(truth) == len(frames), f"drag frames are not distinct: {len(truth)}")
-    return truth
+    key = (str(dev), id(frames), engine_factory)
+    if key not in _TRUTHS:
+        state = new_state(dev, engine=engine_factory() if engine_factory else None)
+        try:
+            truth = {summarize(state.process(Frame(f, 96))): i for i, f in enumerate(frames)}
+        finally:
+            state.close()
+        require(len(truth) == len(frames), f"drag frames are not distinct: {len(truth)}")
+        _TRUTHS[key] = (frames, truth)  # holding the frames keeps their id theirs
+    return _TRUTHS[key][1]
 
 
 def _live_run(dev, frames, truth, threaded: bool, fps, want: int, engine_factory=None) -> tuple:
@@ -1392,6 +1448,353 @@ def phase_app(dev: torch.device) -> dict:
     return dict(K.LAUNCHES)
 
 
+BATCH_SIZES = (1, 3, 8)
+BATCH = 8  # the batch pipeline's batch
+
+
+def batch_rows(rng, bsz: int, w: int, h: int, extra: int = 0) -> tuple:
+    """(u8 [B, padded + extra] rows on the host, padded): each row a frame
+    as BatchPipeline packs it (B, G, R planes of the map ROI, then the
+    button); random pixels with a quiet box over the centre and sprinkled
+    marker-coloured pixels."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch.vision.cuda_backend import _DELTA_CHUNK
+
+    gm = C.map_geometry(w, h)
+    mh, mw = gm.map_h, gm.map_w
+    used = (mh * mw + gm.btn_h * gm.btn_w) * 3
+    padded = (used + _DELTA_CHUNK - 1) // _DELTA_CHUNK * _DELTA_CHUNK
+    rows = rng.integers(0, 256, (bsz, padded + extra), dtype=np.uint8)
+    planes = rows[:, : 3 * mh * mw].reshape(bsz, 3, mh, mw)
+    for i in range(bsz):
+        planes[i, :, mh // 4 : mh - mh // 4, mw // 4 : mw - mw // 4] = 90 + 20 * i
+        hit = rng.random((mh, mw)) < 0.02
+        for c, v in enumerate(ALPHA_BGRA[:3]):
+            planes[i, c][hit] = v
+    return rows, padded
+
+
+def batch_calls(planes: torch.Tensor) -> dict:
+    """{kernel: (the batched call, frame i's plain call, frame i's per-frame
+    kernel call)} on u8 [B, 3, H, W] planes (B, G, R), each returning a
+    tuple of outputs."""
+    from smh_tpu_torch.ops import kernels as K
+
+    b8, g8, r8 = planes[:, 0], planes[:, 1], planes[:, 2]
+    return {
+        "classify_luma": (lambda: K.classify_luma_planes(r8, g8, b8),
+                          lambda i: K.classify_luma_planes_plain(r8[i], g8[i], b8[i]),
+                          lambda i: K.classify_luma_planes(r8[i], g8[i], b8[i])),
+        "fused_mask": (lambda: (K.fused_mask_bits(r8, g8, b8),),
+                       lambda i: (K.fused_mask_bits_plain(r8[i], g8[i], b8[i]),),
+                       lambda i: (K.fused_mask_bits(r8[i], g8[i], b8[i]),)),
+        "quiet_walk": (lambda: (K.minimap_rect_planes(b8, g8, r8),),
+                       lambda i: (K.minimap_rect_planes_plain(b8[i : i + 1], g8[i : i + 1], r8[i : i + 1])[0],),
+                       lambda i: (K.minimap_rect_planes(b8[i : i + 1], g8[i : i + 1], r8[i : i + 1])[0],)),
+    }
+
+
+def check_batched(name: str, calls: tuple, bsz: int, label: str) -> None:
+    """The batched call's frames are bit-equal to the plain version's and
+    to the per-frame kernel's."""
+    batched, plain, single = calls
+    got = batched()
+    for i in range(bsz):
+        for g_, p_, s_ in zip(got, plain(i), single(i)):
+            require(torch.equal(g_[i], p_), f"batched {name} != plain at {label}, frame {i}")
+            require(torch.equal(g_[i], s_), f"batched {name} != per-frame kernel at {label}, frame {i}")
+
+
+def phase_batch_kernels(dev: torch.device) -> dict:
+    """Kernels 1-3 over a whole batch in one launch, against their plain
+    versions and the per-frame kernels, frame by frame; their device time
+    per call and per frame."""
+    from smh_tpu_torch import consts as C
+
+    rng = np.random.default_rng(3)
+    table = {}
+    for w, h in LIVE_SIZES:
+        gm = C.map_geometry(w, h)
+        n_px = gm.map_h * gm.map_w
+        for bsz in BATCH_SIZES:
+            for extra in (0, 1):
+                host, padded = batch_rows(rng, bsz, w, h, extra)
+                rows = torch.from_numpy(host).to(dev)
+                label = f"{gm.map_h}x{gm.map_w} B={bsz} frame stride {padded + extra}"
+                for name, calls in batch_calls(rows[:, : 3 * n_px].view(bsz, 3, gm.map_h, gm.map_w)).items():
+                    check_batched(name, calls, bsz, label)
+                    if extra:
+                        continue
+                    prof = device_profile(calls[0])
+                    us, per_call, other = prof["kernel_us"], prof["kernels"], prof["launches"] - prof["kernels"]
+                    require(per_call == 1.0, f"batched {name} made {per_call} kernel launches per call at {label}")
+                    out_bytes = {"classify_luma": 2 * n_px, "fused_mask": gm.map_h * ((gm.map_w + 7) // 8),
+                                 "quiet_walk": 16}[name]
+                    b = bound(bsz * (3 * n_px + out_bytes), 0.0)
+                    table.setdefault(name, {}).setdefault(f"{gm.map_h}x{gm.map_w}", {})[bsz] = {
+                        "us": us, "us_per_frame": us / bsz, "bound_us": b["bound_ms"] * 1e3,
+                        "ms": cuda_ms(calls[0]), "other_rows": other,
+                    }
+                    print(f"batch kernels: {name} {label}: bit-equal to the plain version and the per-frame "
+                          f"kernel, 1 kernel launch per call (+{other:.0f} memset/copy rows), device {us:.2f} us "
+                          f"per call = {us / bsz:.2f} us per frame, bound {b['bound_ms'] * 1e3:.2f} us (bytes)",
+                          flush=True)
+            print(f"batch kernels: {gm.map_h}x{gm.map_w} B={bsz}: the three batched entries bit-equal at frame "
+                  f"strides {padded} and {padded + 1}", flush=True)
+    # H * W % 4 != 0: the batched classify writes each frame's outputs into
+    # a row padded to 4 bytes, and returns views of them.
+    mh, mw, bsz = 37, 53, 3
+    host = rng.integers(0, 256, (bsz, 3 * mh * mw + 5), dtype=np.uint8)
+    host[:, : 3 * mh * mw].reshape(bsz, 3, mh * mw)[:, :, ::7] = np.array(ALPHA_BGRA[:3], np.uint8)[:, None]
+    rows = torch.from_numpy(host).to(dev)
+    label = f"{mh}x{mw} B={bsz} frame stride {host.shape[1]}"
+    for name, calls in batch_calls(rows[:, : 3 * mh * mw].view(bsz, 3, mh, mw)).items():
+        check_batched(name, calls, bsz, label)
+    print(f"batch kernels: {label}: the three batched entries bit-equal (classify's outputs in padded rows)",
+          flush=True)
+    print("batch kernels: " + json.dumps(table), flush=True)
+    return table
+
+
+def _batches(frames: list, bsz: int) -> list:
+    """24 frames of the cycling drag as 3 batches: a full upload, then delta
+    batches (the second starts over the cycle's end)."""
+    seq = (frames * 3)[: 3 * bsz]
+    return [seq[i : i + bsz] for i in range(0, len(seq), bsz)]
+
+
+def phase_batch(dev: torch.device, card: str) -> dict:
+    """BatchPipeline(batch=8) with smhocr over the marker drag: results
+    against the per-frame VisionState and the oracle, stream() against
+    process(), launches per batch, H2D bytes per batch, frames/s."""
+    from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision.batch import BatchPipeline
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    for w, h in LIVE_SIZES:
+        frames = drag_frames(w, h)
+        want = {i: s for s, i in _truth(dev, frames).items()}
+        # The drag's first frame is frame_for's, whose oracle result
+        # phase_slice kept.
+        ref, got = ORACLE[(w, h)], want[0]
+        require(np.array_equal(frames[0], frame_for(w, h)), "the drag does not start on frame_for's frame")
+        require(len(ref[0]) == len(got[0]) == 1 and ref[1] == got[1] and ref[2] == got[2],
+                f"per-frame state {got} vs oracle {ref}")
+        require(all(abs(a - b) <= 1.5 for a, b in zip(ref[0][0], got[0][0])), f"{got} vs oracle {ref}")
+        batches = _batches(frames, BATCH)
+        label = f"{w}x{h} B={BATCH}"
+
+        secs = {}  # the phase's own seconds, by step
+        t0 = time.perf_counter()
+        K.reset_launches()
+        bp = BatchPipeline(w, h, batch=BATCH, ocr_engine=SmhOcrEngine(), device=dev)
+        try:
+            h2d = []
+            results = []
+            for batch in batches:
+                before = bp.stats["h2d_bytes"]
+                results.append(bp.process(batch))
+                h2d.append(bp.stats["h2d_bytes"] - before)
+            torch.cuda.synchronize()
+            run = dict(K.LAUNCHES)
+            stats = dict(bp.stats)
+            secs["checked"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS, tries=6)
+            secs["profile"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for batch in batches:
+                bp.process(batch)
+            secs["process"] = time.perf_counter() - t0
+            fps_process = len(batches) * BATCH / secs["process"]
+            # stream() on the warm pipeline: its first batch rides the chain
+            # from the last process() batch; the results are the same.
+            t0 = time.perf_counter()
+            streamed = list(bp.stream(iter(batches), depth=2))
+            secs["stream"] = time.perf_counter() - t0
+            fps_stream = len(batches) * BATCH / secs["stream"]
+        finally:
+            bp.close()
+        for name, n in run.items():
+            launches[name] += n
+        require(all(run[n] == len(batches) for n in K.FUSED_PASS), f"{label}: not one launch per batch: {run}")
+        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 per batch (profiler) {prof}")
+        require(stats["full_batches"] == 1 and stats["delta_batches"] == len(batches) - 1,
+                f"{label}: not a full batch, then deltas: {stats}")
+        for bi, (batch, res) in enumerate(zip(batches, results)):
+            for fi, (f, r) in enumerate(zip(batch, res)):
+                i = next(k for k, fr in enumerate(frames) if fr is f)
+                require(not r.sleeping and summarize(r) == want[i],
+                        f"{label} batch {bi} frame {fi}: {summarize(r)} != per-frame {want[i]}")
+        require([[summarize(r) for r in b] for b in streamed] == [[summarize(r) for r in b] for b in results],
+                f"{label}: stream() != process()")
+        print(f"batch: {label} over {len(batches)} batches of the drag: results == the per-frame VisionState "
+              f"(== the oracle within 1.5 px on frame 0), stream(depth=2) == process(); "
+              f"{prof['kernels']:.0f} kernel launches + {prof['launches'] - prof['kernels']:.0f} memset/copy rows "
+              f"per delta batch (profiler; classify_luma / fused_mask / quiet_walk {prof['named']}), device "
+              f"{prof['kernel_us'] / 1e3:.3f} ms per batch; H2D bytes per batch {h2d} (full, then deltas); "
+              f"process() {fps_process:.2f} frames/s, stream() {fps_stream:.2f} frames/s; stats t_* "
+              f"{{{', '.join(f'{k} {v:.1f}' for k, v in stats.items() if k.startswith('t_'))}}} on {card}; "
+              f"seconds {', '.join(f'{k} {v:.1f}' for k, v in secs.items())}", flush=True)
+    return launches
+
+
+WARMUP_CHILD = r"""
+import json, sys, time
+import torch
+import chip_smoke as cs
+from smh_tpu_torch import _build
+from smh_tpu_torch.ops import kernels as K
+from smh_tpu_torch.squadex.capture import Frame
+
+warm = sys.argv[1] == "1"
+dev = sys.argv[2]
+sync = torch.cuda.synchronize if dev.startswith("cuda") else (lambda: None)
+builds = []
+real_build = _build.build
+_build.build = lambda: (builds.append(1), real_build())[1]
+t0 = time.perf_counter()
+if warm:
+    from smh_tpu_torch.ops.warmup import warmup
+    warmup(((1920, 1080),), device=dev)
+warm_s = time.perf_counter() - t0
+state = cs.new_state(dev)
+frame = cs.frame_for(1920, 1080)
+n_builds, n_tables = len(builds), len(K._tables)
+t0 = time.perf_counter()
+res = state.process(Frame(frame, 96))
+sync()
+first_ms = (time.perf_counter() - t0) * 1e3
+t0 = time.perf_counter()
+state.process(Frame(frame, 96))
+sync()
+second_ms = (time.perf_counter() - t0) * 1e3
+state.close()
+print("WARMUP " + json.dumps({"warmup": warm, "warmup_s": warm_s, "first_ms": first_ms, "second_ms": second_ms,
+      "builds_in_first": len(builds) - n_builds, "tables_in_first": len(K._tables) - n_tables,
+      "markers": len(res.markers)}))
+"""
+
+
+def phase_warmup(dev: torch.device) -> None:
+    """The first process() of a fresh process with and without warmup():
+    the two children run at once, sharing the host and the card."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {warm: subprocess.Popen([sys.executable, "-c", WARMUP_CHILD, warm, str(dev)], cwd=root,
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for warm in ("0", "1")}
+    rows = {}
+    try:
+        for warm, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            require(proc.returncode == 0, f"warmup child ({warm}) failed:\n{err[-3000:]}")
+            row = json.loads(next(l for l in out.splitlines() if l.startswith("WARMUP "))[7:])
+            require(row["markers"] == 1, f"warmup child ({warm}): {row}")
+            rows[warm] = row
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    warmed, cold = rows["1"], rows["0"]
+    require(warmed["builds_in_first"] == 0 and warmed["tables_in_first"] == 0,
+            f"the first frame after warmup built or launched tables: {warmed}")
+    require(cold["tables_in_first"] == 1, f"the cold first frame did not build the tables: {cold}")
+    print(f"warmup: first process() at 1080p {cold['first_ms']:.1f} ms cold (second {cold['second_ms']:.1f} ms) vs "
+          f"{warmed['first_ms']:.1f} ms after warmup() of {warmed['warmup_s']:.1f} s (second "
+          f"{warmed['second_ms']:.1f} ms; the two children ran at once); after warmup the first frame built "
+          f"nothing and launched no table kernel", flush=True)
+
+
+def _worker_result(dev, img) -> tuple:
+    """What a fresh worker answers for a frame, computed in this process: a
+    new VisionState of the worker's settings (async scales) that submits
+    and then consumes it."""
+    from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+    from smh_tpu_torch.settings import Settings
+    from smh_tpu_torch.squadex.capture import Frame
+    from smh_tpu_torch.vision.pipeline import VisionState
+
+    s = Settings(path=None)
+    s.set("hardware_acceleration", True, save=False)
+    state = VisionState(settings=s, ocr_engine=SmhOcrEngine(), scales_async=True, device=dev)
+    try:
+        f = Frame(img, 96)
+        return summarize(state.process(f, submitted=state.submit(f)))
+    finally:
+        state.close()
+
+
+def phase_worker(dev: torch.device) -> None:
+    """The CLI's App with --worker on the card, one supervised worker child
+    at a time: ready, the child's imports, a recycle at a 1-byte upload
+    budget after its first frame and the restarted child serving the frame
+    again, each result == the in-process state's."""
+    from smh_tpu_torch import app as tapp
+    from smh_tpu_torch.settings import Settings
+
+    args = tapp.build_parser().parse_args(["--synthetic", "--worker", "--no-web", "--device", str(dev)])
+    settings = Settings(path=None)
+    settings.set("hardware_acceleration", True, save=False)
+    source = tapp._build_source(args)
+    app = tapp.App(source, settings=settings, device=args.device, serve=not args.no_web, worker=args.worker)
+    updates = []
+    deliver = app._on_update
+    app._on_update = lambda r, d: (updates.append(r), deliver(r, d))
+
+    def wait_for(cond, what: str, timeout: float = 120) -> None:
+        deadline = time.time() + timeout
+        while not cond() and time.time() < deadline:
+            time.sleep(0.05)
+        wc = app._worker_client
+        require(cond(), f"{what} within {timeout:.0f} s ({wc.diagnose() if wc is not None else 'no worker'})")
+
+    def served() -> list:
+        return [r for r in updates if r is not None and len(r.markers) == 1]
+
+    t0 = time.perf_counter()
+    try:
+        # Only the first child gets the 1-byte budget and the import trace:
+        # the restarted one serves on without recycling.
+        with environ(SMH_WORKER_RECYCLE_MB="0.000001", PYTHONPROFILEIMPORTTIME="1"):
+            app.start()
+            wait_for(lambda: app._worker_client is not None and app._worker_client._proc is not None,
+                     "no worker child started")
+        wc = app._worker_client
+        wait_for(lambda: len(served()) >= 1, "no update with one marker")
+        ready_s, ready = time.perf_counter() - t0, wc.ready_info
+        wait_for(lambda: wc.restarts == 1 and wc.last_exit_code == 42, "no recycle (exit 42) and restart")
+        recycled_s = time.perf_counter() - t0
+        app._wake()  # the static scene again, for the restarted child
+        wait_for(lambda: len(served()) >= 2, "the restarted worker served no update")
+        again_s = time.perf_counter() - t0
+        err = open(wc._stderr_path).read()
+    finally:
+        app.stop()
+    stopped_s = time.perf_counter() - t0
+    require(not app._worker_thread.is_alive(), "the --worker app did not stop")
+    want = _worker_result(dev, source.grab().image)
+    got = [summarize(r) for r in served()[:2]]
+    require(got == [want, want], f"worker results {got} != in process {want}")
+    imported = [line.split("|")[-1].strip() for line in err.splitlines() if line.startswith("import time:")]
+    leaked = sorted(m for m in imported if m.split(".")[0] in ("jax", "jaxlib", "smh_tpu"))
+    require("smh_tpu_torch.vision.cuda_backend" in imported and not leaked, f"worker child imported {leaked}")
+    print(f"worker: the CLI's App with --worker on {dev}: first update in {ready_s:.1f} s (ready {ready}); the "
+          f"child imported {len(imported)} modules, none of jax or smh_tpu; a 1-byte upload budget recycled it "
+          f"(exit 42) after its first frame and the restarted worker served the frame again; markers "
+          f"{got[0][0]}, ratio {got[0][1]}, minimap {got[0][2]} == the in-process state's, twice; stopped cleanly "
+          f"(at {recycled_s:.1f} s the recycle, {again_s:.1f} s the second update, {stopped_s:.1f} s stopped)",
+          flush=True)
+
+
+def timed_phase(name: str, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"{name}: phase took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("device: torch.cuda.is_available() is False; this smoke needs a CUDA device",
@@ -1418,11 +1821,18 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     kernels["ray_march"] = phase_ray_march(dev)
+    # Before the traces of thousands of launches (phase_timing, phase_batch):
+    # late in a run, short traces lost most of their records four times
+    # running (device_profile).
+    timed_phase("batch kernels", phase_batch_kernels, dev)
     launches = phase_slice(dev)
     main_paths = [launches, phase_dense(dev), phase_transports(dev), phase_debug(dev), phase_device_engine(dev)]
     phase_timing(dev, card)
     phase_loop(dev)
     main_paths += [phase_live(dev, card), phase_live_window(dev, card), phase_app(dev)]
+    main_paths.append(timed_phase("batch", phase_batch, dev, card))
+    timed_phase("warmup", phase_warmup, dev)
+    timed_phase("worker", phase_worker, dev)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "smh_tpu"))
     require(not leaked, f"the port imported {leaked}")
 

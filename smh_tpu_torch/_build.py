@@ -49,12 +49,13 @@ _SIGNATURES = {
     "smh_classify_tables_bytes": [],
     # (tables, params, stream)
     "smh_classify_tables": [_VP, _VP, _VP],
-    # (r, g, b, marker, luma, n, tables, stream)
-    "smh_classify_luma": [_VP, _VP, _VP, _VP, _VP, _I64, _VP, _VP],
-    # (p0, p1, p2, scratch, out, B, H, W, stream)
-    "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP],
-    # (r, g, b, bits, H, W, tables, stream)
-    "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _VP, _VP],
+    # (r, g, b, marker, luma, n, B, in_stride, out_stride, tables, stream);
+    # the strides are between the B frames, in bytes
+    "smh_classify_luma": [_VP, _VP, _VP, _VP, _VP, _I64, _I, _I64, _I64, _VP, _VP],
+    # (p0, p1, p2, scratch, out, B, H, W, frame_stride (bytes), out_stride (i32s), stream)
+    "smh_quiet_walk": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I64, _I64, _VP],
+    # (r, g, b, bits, H, W, B, in_stride, out_stride, tables, stream)
+    "smh_fused_mask": [_VP, _VP, _VP, _VP, _I, _I, _I, _I64, _I64, _VP, _VP],
     # (mask, H, W, pts, B, cos, sin, N, max_gap, k_total, end_x, end_y,
     #  best_x, best_y, best_len, stream)
     "smh_ray_march": [_VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],

@@ -3,11 +3,13 @@
 The port's copy of smh_tpu/app.py (counterpart of
 /root/reference/src/main.rs:33-124 and the UI data bus,
 src/ui/mod.rs:93-141), with the port's VisionState on an explicit device.
-Left out: --warmup and the compile cache (no JAX here), and --worker (the
-pipeline in a worker process), which exits with a message.
+--warmup runs ops/warmup.py on that device before serving; --worker runs
+the pipeline in a worker process (worker.py) on it. Left out: the compile
+cache (no JAX here).
 
 Usage:
   python -m smh_tpu_torch.app --synthetic --pipelined --no-web   # on a CUDA device
+  python -m smh_tpu_torch.app --synthetic --warmup --worker --no-web   # warmed, in a worker process
   python -m smh_tpu_torch.app --synthetic --debug-web   # debug telemetry + /api/debug-view
   python -m smh_tpu_torch.app --synthetic --backend numpy --device cpu   # the numpy oracle, no card
   python -m smh_tpu_torch.app --image frame.png --device cuda:1
@@ -22,6 +24,8 @@ import pathlib
 import signal
 import threading
 from typing import Optional
+
+import numpy as np
 
 from . import consts as C
 from .ocr import tesseract
@@ -41,11 +45,6 @@ from .web.server import WebServer
 from .web import protocol
 
 log = logging.getLogger(__name__)
-
-NOT_PORTED = {
-    "worker": "--worker (the vision pipeline in a worker process) is not ported to the CUDA backend yet",
-}
-
 
 class App:
     """Owns the threads and the UI-data bus between vision and web."""
@@ -68,9 +67,15 @@ class App:
         worker: bool = False,
     ) -> None:
         """device: "cuda" / "cuda:N" runs the CUDA backend, "cpu" its plain
-        PyTorch versions. worker=True is not ported and raises."""
-        if worker:
-            raise NotImplementedError(NOT_PORTED["worker"])
+        PyTorch versions.
+
+        worker=True runs the vision pipeline in a PERSISTENT WORKER PROCESS
+        (smh_tpu_torch/worker.py) on that device instead of an in-process
+        thread: frames cross a shared-memory ring, detections come back over
+        a unix socket, and the worker recycles itself past its upload
+        budget. The in-process knobs that live inside the pipeline (debug
+        views, backend hot-swap) are owned by the worker in this mode."""
+        self.device = device
         self.settings = settings or Settings()
         # Log observability surface (reference: in-app log window fed by a
         # channel with repeat-collapse + auto-open-on-error,
@@ -95,7 +100,14 @@ class App:
         self.ripper_exe = ripper_exe
         self.cache_dir = cache_dir
         self.capture = CaptureThread(source)
-        self.loop = VisionLoop(self.state, self.capture, self._on_update, pipelined=pipelined)
+        self.worker_mode = worker
+        self._worker_client = None
+        self._worker_thread: Optional[threading.Thread] = None
+        self._worker_map = None  # latest ui map pushed through the shm slot
+        if worker:
+            self.loop = None
+        else:
+            self.loop = VisionLoop(self.state, self.capture, self._on_update, pipelined=pipelined)
         self.web = WebServer(port=port) if serve else None
         self.custom_markers: list[tuple[tuple[float, float], tuple[float, float]]] = []
         self._lock = threading.Lock()
@@ -425,20 +437,109 @@ class App:
     # -- lifecycle ----------------------------------------------------------
 
     def _wake(self) -> None:
-        """Re-deliver the current frame after a runtime settings flip."""
-        self.loop.wake()
+        """Re-deliver the current frame after a runtime settings flip. In
+        worker mode the feeder polls the mailbox anyway; invalidating the
+        capture dedup is all that's needed."""
+        if self.loop is not None:
+            self.loop.wake()
+        else:
+            resend = getattr(self.capture, "resend", None)
+            if resend is not None:
+                resend()
+
+    # -- worker mode: feed the worker process from the capture mailbox -------
+
+    def _run_worker_feeder(self) -> None:
+        from . import consts as C_
+        from .geometry import Line, Rect
+        from .utils.timeshares import Timeshares
+        from .vision.pipeline import DebugBox
+        from .worker import WorkerClient
+
+        interval = 1.0 / float(C_.VISION_FPS)
+
+        def on_map(rgba, _seq) -> None:
+            self._worker_map = rgba  # fresh object per push: id() dedup works
+            # The worker emits the map AFTER its frame's result event, and a
+            # static scene produces no further results — push to viewers now
+            # and backfill the retained results so late connectors get it.
+            if self._last_results is not None:
+                self._last_results._map = rgba
+            if self.web is not None and self.web.num_clients() > 0:
+                self.web.send_map(rgba)
+                self._last_map_id = id(rgba)
+
+        def on_result(msg: dict) -> None:
+            debug = DebugBox(timeshares=Timeshares())
+            debug.timeshares.entire_frame = msg.get("ms", 0.0) / 1000.0
+            if msg.get("sleeping"):
+                self._on_update(None, debug)
+                return
+            results = VisionResults()
+            results.markers = [
+                Line.from_tuple(((x0, y0), (x1, y1)))
+                for x0, y0, x1, y1 in msg.get("markers", [])
+            ]
+            results.meters_to_px_ratio = msg.get("ratio")
+            mm = msg.get("minimap")
+            results.minimap_bounds = (
+                Rect(left=mm[0], top=mm[1], right=mm[2], bottom=mm[3]) if mm else None
+            )
+            results._map = self._worker_map
+            self._on_update(results, debug)
+
+        wc = None
+        undelivered = None  # last frame the worker hasn't accepted yet:
+        # a static source publishes each distinct frame ONCE (capture
+        # dedup), and the worker spends its first ~minute warming up —
+        # dropping that one frame would leave the session blank forever.
+        try:
+            while not self._shutdown.is_set():
+                if self.settings.paused():
+                    self._shutdown.wait(0.05)
+                    continue
+                frame = self.capture.fresh_frame()
+                if frame is None:
+                    frame = undelivered
+                if frame is None:
+                    self._shutdown.wait(interval)
+                    continue
+                h, w = frame.image.shape[:2]
+                if wc is None or (wc.w, wc.h) != (w, h):
+                    if wc is not None:
+                        wc.close()
+                    log.info("starting pipeline worker for %dx%d", w, h)
+                    wc = WorkerClient(w, h, on_result, on_map=on_map, device=self.device)
+                    self._worker_client = wc
+                    wc.set_maps(self.web is not None)
+                accepted = wc.submit(frame.image, frame.dpi or 96)
+                undelivered = None if accepted is not None else frame
+                self._shutdown.wait(interval)
+        finally:
+            if wc is not None:
+                wc.close()
+            self._worker_client = None
 
     def start(self) -> "App":
         if self.web is not None:
             self.web.start()
             log.info("web UI at %s", self.web.addr)
         self.capture.start()
-        self.loop.start()
+        if self.loop is not None:
+            self.loop.start()
+        else:
+            self._worker_thread = threading.Thread(
+                target=self._run_worker_feeder, name="worker-feeder", daemon=True
+            )
+            self._worker_thread.start()
         return self
 
     def stop(self) -> None:
         self._shutdown.set()
-        self.loop.stop()
+        if self.loop is not None:
+            self.loop.stop()
+        if self._worker_thread is not None:
+            self._worker_thread.join(timeout=15.0)
         self.capture.stop()
         if self.web is not None:
             self.web.stop()
@@ -476,8 +577,8 @@ def _build_source(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """smh_tpu.app's command line without --warmup, with --device and the
-    backends "cuda" and "numpy"."""
+    """smh_tpu.app's command line with --device and the backends "cuda" and
+    "numpy"."""
     ap = argparse.ArgumentParser(description="Squad Mortar Helper (PyTorch + CUDA)")
     src = ap.add_mutually_exclusive_group()
     src.add_argument("--image", help="use a single screenshot as the frame source")
@@ -498,7 +599,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="overlap the next frame's upload and device work with the current "
              "frame's result processing",
     )
-    ap.add_argument("--worker", action="store_true", help="not ported to the CUDA backend yet")
+    ap.add_argument("--worker", action="store_true",
+                    help="run the vision pipeline in a persistent worker process "
+                         "(shm frame ring + unix socket results) on --device; the "
+                         "worker recycles itself past SMH_WORKER_RECYCLE_MB of uploads")
     ap.add_argument("--debug-web", action="store_true",
                     help="broadcast debug telemetry to web clients (event id 100): "
                          "per-frame timeshares, OCR boxes and scale overlays")
@@ -507,6 +611,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "(default: async — markers publish immediately, the ratio "
                          "lags <=1 frame; it only changes on zoom)")
     ap.add_argument("--settings", default="settings.json")
+    ap.add_argument("--warmup", action="store_true",
+                    help="before serving, run every static shape the transport ladders reach "
+                         "at the common resolutions on --device (the kernels' build, the "
+                         "classify tables, the allocator's growth)")
     ap.add_argument("--dumplogs", action="store_true", help="also log to smh.log")
     ap.add_argument("--list-maps", action="store_true")
     ap.add_argument("--rip", metavar="MAP_PATH", help="rip a heightmap into the .smhhm cache")
@@ -524,9 +632,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for flag, message in NOT_PORTED.items():
-        if getattr(args, flag):
-            raise SystemExit(message)
 
     handlers: list[logging.Handler] = [logging.StreamHandler()]
     if args.dumplogs:
@@ -572,10 +677,16 @@ def main(argv=None) -> int:
         # An override for this run only: a CLI flag must not rewrite settings.json.
         settings.set("hardware_acceleration", args.backend == "cuda", save=False)
 
+    if args.warmup and settings.hardware_acceleration():
+        from .ops.warmup import warmup
+
+        warmup(device=args.device)
+
     app = App(
         _build_source(args), settings=settings, device=args.device, port=args.port,
         serve=not args.no_web, pipelined=args.pipelined, scales_async=not args.sync_scales,
         debug_web=args.debug_web, paks=args.paks, aes=args.aes, ripper_exe=args.ripper, cache_dir=args.cache_dir,
+        worker=args.worker,
     )
 
     if args.heightmap:

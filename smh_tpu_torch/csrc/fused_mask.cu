@@ -45,6 +45,12 @@
 //    all resident at once (64 registers a thread). No integer division by
 //    a variable: tile indices are shifts. The tables are copied into shared
 //    memory first, under the latency of the plane loads.
+//
+// A batch of B frames is one launch: blockIdx.z selects the frame, whose
+// planes start in_stride bytes and whose bit plane starts out_stride bytes
+// after the previous frame's. Only the base pointers move per frame; the
+// per-frame call is the B = 1 case, built without the offsets (BATCH false,
+// as in classify_luma.cu).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -65,16 +71,24 @@ static_assert((WPR & (WPR - 1)) == 0, "WPR is a power of two: tile indices are s
 static_assert(SR * WPR % WARPS == 0, "every warp classifies the same number of words");
 static_assert(2 * SR <= THREADS && TH * WPR <= THREADS, "one pass for the edges and the output words");
 
+template <bool BATCH>
 __global__ void __launch_bounds__(THREADS, 4)
 fused_mask_kernel(const uint8_t* __restrict__ r8, const uint8_t* __restrict__ g8,
                   const uint8_t* __restrict__ b8, uint8_t* __restrict__ bits, int H, int W,
-                  int bpr, const smh::ClassifyTables* __restrict__ tables) {
+                  int bpr, int64_t in_stride, int64_t out_stride,
+                  const smh::ClassifyTables* __restrict__ tables) {
   __shared__ smh::ClassifyTables tab;
   __shared__ uint32_t m[SR][WPR];
   __shared__ uint32_t edge[2][SR];  // pixel x0 - 1 and x0 + TW of each staged row
   __shared__ uint32_t scratch[WARPS][32];
 
   smh::load_tables(tab, tables);  // first: its latency hides under the plane loads'
+  if constexpr (BATCH) {  // this block's frame
+    r8 += blockIdx.z * in_stride;
+    g8 += blockIdx.z * in_stride;
+    b8 += blockIdx.z * in_stride;
+    bits += blockIdx.z * out_stride;
+  }
   const int x0 = blockIdx.x * TW;
   const int y0 = blockIdx.y * TH;
   const int tid = threadIdx.x;
@@ -146,17 +160,20 @@ fused_mask_kernel(const uint8_t* __restrict__ r8, const uint8_t* __restrict__ g8
 
 }  // namespace
 
-// r8, g8, b8: u8 [H, W] planes; bits: u8 [H, (W + 7) / 8]; tables: as
+// B frames: frame f's u8 [H, W] planes start at r8/g8/b8 + f * in_stride and
+// its bits, u8 [H, (W + 7) / 8], at bits + f * out_stride (bytes); tables: as
 // written by smh_classify_tables (classify_luma.cu).
 extern "C" int smh_fused_mask(const void* r8, const void* g8, const void* b8,
-                              void* bits, int H, int W, const void* tables,
-                              void* stream) {
-  if (H <= 0 || W <= 0) return (int)cudaSuccess;
+                              void* bits, int H, int W, int B, int64_t in_stride,
+                              int64_t out_stride, const void* tables, void* stream) {
+  if (H <= 0 || W <= 0 || B <= 0) return (int)cudaSuccess;
+  if (B > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
   const int bpr = (W + 7) / 8;
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH);
-  fused_mask_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  auto kernel = B > 1 ? fused_mask_kernel<true> : fused_mask_kernel<false>;
+  kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(r8), static_cast<const uint8_t*>(g8),
-      static_cast<const uint8_t*>(b8), static_cast<uint8_t*>(bits), H, W, bpr,
-      static_cast<const smh::ClassifyTables*>(tables));
+      static_cast<const uint8_t*>(b8), static_cast<uint8_t*>(bits), H, W, bpr, in_stride,
+      out_stride, static_cast<const smh::ClassifyTables*>(tables));
   return (int)cudaGetLastError();
 }

@@ -63,6 +63,10 @@
 //    writes out[b]. A second launch of B blocks would cost another launch
 //    latency and another host launch call for ~1 us of work.
 //
+// Batch element b's planes start frame_stride bytes after element b-1's
+// (the batched pass's planes are rows of one [B, padded] buffer), and its
+// rect is out[b * out_stride .. + 4) (i32 elements).
+//
 // Contract: launches on the given stream, allocates nothing, returns
 // cudaGetLastError() (or the memset's error).
 
@@ -99,7 +103,7 @@ __device__ __forceinline__ uint32_t sad3(const uint32_t* c, const uint32_t* n) {
 __global__ void __launch_bounds__(THREADS)
 quiet_walk_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1,
                   const uint8_t* __restrict__ p2, int* __restrict__ scratch,
-                  int* __restrict__ out, int B, int H, int W) {
+                  int* __restrict__ out, int B, int H, int W, int64_t frame_stride, int64_t out_stride) {
   __shared__ uint32_t tile[3][SH][SWW];
   __shared__ int colacc[TW];
   __shared__ int red[4][THREADS / 32];
@@ -123,7 +127,7 @@ quiet_walk_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1
 
   if (needed) {
     if (tid < TW) colacc[tid] = 0;
-    const int64_t base = (int64_t)b * H * W;
+    const int64_t base = (int64_t)b * frame_stride;
     const int j = tid % SWW;
     const int gx = x0 - 4 + 4 * j;  // map column of the staged word's byte 0
 #pragma unroll
@@ -256,7 +260,7 @@ quiet_walk_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1
       right = min(right, red[2][w]);
       bottom = min(bottom, red[3][w]);
     }
-    int* o = out + 4 * (int64_t)b;
+    int* o = out + (int64_t)b * out_stride;
     o[0] = left;
     o[1] = top;
     o[2] = right;
@@ -267,8 +271,10 @@ quiet_walk_kernel(const uint8_t* __restrict__ p0, const uint8_t* __restrict__ p1
 }  // namespace
 
 extern "C" int smh_quiet_walk(const void* p0, const void* p1, const void* p2, void* scratch,
-                              void* out, int B, int H, int W, void* stream) {
+                              void* out, int B, int H, int W, int64_t frame_stride, int64_t out_stride,
+                              void* stream) {
   if (B <= 0 || H <= 0 || W <= 0) return (int)cudaSuccess;
+  if (B > 65535) return (int)cudaErrorInvalidValue;  // gridDim.z
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)B * ((size_t)W + H + 1), s);
@@ -276,6 +282,7 @@ extern "C" int smh_quiet_walk(const void* p0, const void* p1, const void* p2, vo
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   quiet_walk_kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const uint8_t*>(p0), static_cast<const uint8_t*>(p1),
-      static_cast<const uint8_t*>(p2), static_cast<int*>(scratch), static_cast<int*>(out), B, H, W);
+      static_cast<const uint8_t*>(p2), static_cast<int*>(scratch), static_cast<int*>(out), B, H, W,
+      frame_stride, out_stride);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,14 @@ to the plain version and no switch that bypasses the kernel. `LAUNCHES`
 counts kernel launches (and nothing else), so a run can show that the main
 path went through the kernels.
 
+Each wrapper also takes a batch: [B, H, W] planes whose frames are
+contiguous and start stride(0) >= H * W bytes apart (the batched pass cuts
+them from the rows of one [B, padded] buffer with no copy). A batch is ONE
+launch over a grid with a batch axis, counted once: the counterpart of the
+vmapped pallas_call of smh_tpu's batch pipeline. Each frame's result is the
+per-frame kernel's; the plain versions are shape-generic, so on a batch
+they compute each frame's plain result.
+
 * classify_luma_planes -> csrc/classify_luma.cu
   Replaces pallas_kernels.py::_classify_luma_kernel
   (classify_luma_pallas_planes). 3 bytes read + 2 written per pixel, but
@@ -79,18 +87,40 @@ def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_planes(planes, ndim: int) -> torch.device:
+def _frame_stride(planes) -> int:
+    """The bytes between the frames of [B, H, W] planes (H * W for [H, W]),
+    as the kernels read them from data_ptr(): each frame contiguous, the
+    three planes sharing one stride of at least H * W, or ValueError."""
+    first = planes[0]
+    h, w = first.shape[-2:]
+    if first.numel() == 0:
+        return h * w
+    if not all((p[0] if p.dim() == 3 else p).is_contiguous() for p in planes):
+        raise ValueError("the kernels read planes whose frames are contiguous")
+    if first.dim() == 3 and first.shape[0] > 1:
+        strides = {p.stride(0) for p in planes}
+        if len(strides) != 1 or min(strides) < h * w:
+            raise ValueError(f"the planes' frames must share one stride of at least H * W: {strides}")
+        return strides.pop()
+    return h * w
+
+
+def _check_planes(planes, ranks) -> tuple:
+    """(device, frame stride in bytes) of u8 [H, W] or [B, H, W] planes of
+    one shape and device (`ranks`: the ranks the kernel takes); the layout
+    is checked where a kernel reads it, on a CUDA device."""
     first = planes[0]
     for p in planes:
-        if p.dtype != torch.uint8 or p.dim() != ndim:
-            raise ValueError(f"expected u8 planes of rank {ndim}, got {p.dtype} {tuple(p.shape)}")
+        if p.dtype != torch.uint8 or p.dim() not in ranks:
+            raise ValueError(f"expected u8 planes of rank {' or '.join(map(str, ranks))}, "
+                             f"got {p.dtype} {tuple(p.shape)}")
         if p.shape != first.shape or p.device != first.device:
             raise ValueError("planes differ in shape or device")
     if first.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {first.device}")
-    if first.device.type == "cuda" and not all(p.is_contiguous() for p in planes):
-        raise ValueError("the kernels read contiguous planes")  # they index from data_ptr()
-    return first.device
+    if first.device.type == "cpu":
+        return first.device, None
+    return first.device, _frame_stride(planes)
 
 
 # -- kernel 1: classify + luma ---------------------------------------------------
@@ -157,7 +187,8 @@ def _classify_tables(lib, device: torch.device) -> torch.Tensor:
 
 
 def classify_luma_planes_plain(r8, g8, b8):
-    """Plain PyTorch twin of the classify kernel: (marker u8 0/1, luma u8)."""
+    """Plain PyTorch twin of the classify kernel: (marker u8 0/1, luma u8),
+    pixel by pixel, so of any shape."""
     from . import hsv
 
     marker = hsv.is_any_map_marker_color_planes(r8, g8, b8).to(torch.uint8)
@@ -165,20 +196,29 @@ def classify_luma_planes_plain(r8, g8, b8):
 
 
 def classify_luma_planes(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor):
-    """u8 [H, W] R, G, B planes -> (marker u8 0/1 [H, W], luma u8 [H, W])."""
-    device = _check_planes((r8, g8, b8), 2)
+    """u8 [H, W] R, G, B planes -> (marker u8 0/1 [H, W], luma u8 [H, W]);
+    [B, H, W] planes -> [B, H, W] outputs in one launch (each frame's
+    outputs start 4-byte aligned, for the kernel's word stores: where H * W
+    is not a multiple of 4 they are views of rows padded to one)."""
+    device, stride = _check_planes((r8, g8, b8), (2, 3))
     if device.type == "cpu":
         return classify_luma_planes_plain(r8, g8, b8)
-    r8, g8, b8 = (p.contiguous() for p in (r8, g8, b8))
-    marker = torch.empty_like(r8)
-    luma = torch.empty_like(r8)
+    h, w = r8.shape[-2:]
+    out_stride = -(-h * w // 4) * 4
+    bsz = r8.shape[0] if r8.dim() == 3 else 1
+    if r8.dim() == 3 and out_stride != h * w:
+        marker = torch.empty((bsz, out_stride), dtype=torch.uint8, device=device)[:, : h * w].view(bsz, h, w)
+        luma = torch.empty((bsz, out_stride), dtype=torch.uint8, device=device)[:, : h * w].view(bsz, h, w)
+    else:
+        marker = torch.empty(r8.shape, dtype=torch.uint8, device=device)
+        luma = torch.empty(r8.shape, dtype=torch.uint8, device=device)
     if r8.numel() == 0:
         return marker, luma
     lib = _build.load()
     with torch.cuda.device(device):
         code = lib.smh_classify_luma(
             r8.data_ptr(), g8.data_ptr(), b8.data_ptr(),
-            marker.data_ptr(), luma.data_ptr(), r8.numel(),
+            marker.data_ptr(), luma.data_ptr(), h * w, bsz, stride, out_stride,
             _classify_tables(lib, device).data_ptr(), _stream_ptr(r8),
         )
     _build.check(code, "smh_classify_luma")
@@ -200,11 +240,11 @@ def minimap_rect_planes_plain(p0, p1, p2) -> torch.Tensor:
 def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
     """Channel planes u8 [B, H, W] x3 -> i32 [B, 4] minimap rects (one C call
     for the whole batch: a scratch clear and one launch; SAD sums channels,
-    so plane order does not matter)."""
-    device = _check_planes((p0, p1, p2), 3)
+    so plane order does not matter). Each frame must be contiguous; the
+    frames may lie any stride(0) >= H * W bytes apart."""
+    device, stride = _check_planes((p0, p1, p2), (3,))
     if device.type == "cpu":
         return minimap_rect_planes_plain(p0, p1, p2)
-    p0, p1, p2 = (p.contiguous() for p in (p0, p1, p2))
     bsz, h, w = p0.shape
     if p0.numel() == 0:
         raise ValueError(f"empty planes {tuple(p0.shape)}")
@@ -214,7 +254,7 @@ def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) ->
     with torch.cuda.device(device):
         code = lib.smh_quiet_walk(
             p0.data_ptr(), p1.data_ptr(), p2.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-            bsz, h, w, _stream_ptr(p0),
+            bsz, h, w, stride, 4, _stream_ptr(p0),
         )
     _build.check(code, "smh_quiet_walk")
     LAUNCHES["quiet_walk"] += 1
@@ -226,7 +266,8 @@ def minimap_rect_planes(p0: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) ->
 
 def fused_mask_bits_plain(r8, g8, b8) -> torch.Tensor:
     """Plain PyTorch twin of the fused mask kernel:
-    pack_bits(_dilate_l1_radius1_bool(classify)) -> u8 [H, ceil(W/8)]."""
+    pack_bits(_dilate_l1_radius1_bool(classify)) -> u8 [H, ceil(W/8)] (or
+    [B, H, ceil(W/8)]: both steps are per frame)."""
     from . import hsv
     from . import pipeline as opp
 
@@ -236,20 +277,21 @@ def fused_mask_bits_plain(r8, g8, b8) -> torch.Tensor:
 
 def fused_mask_bits(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor) -> torch.Tensor:
     """u8 [H, W] R, G, B planes -> the dilated marker mask bit-packed MSB
-    first, u8 [H, ceil(W/8)], pad bits zero."""
-    device = _check_planes((r8, g8, b8), 2)
+    first, u8 [H, ceil(W/8)], pad bits zero; [B, H, W] planes -> u8
+    [B, H, ceil(W/8)] in one launch."""
+    device, stride = _check_planes((r8, g8, b8), (2, 3))
     if device.type == "cpu":
         return fused_mask_bits_plain(r8, g8, b8)
-    r8, g8, b8 = (p.contiguous() for p in (r8, g8, b8))
-    h, w = r8.shape
-    bits = torch.empty((h, (w + 7) // 8), dtype=torch.uint8, device=device)
+    h, w = r8.shape[-2:]
+    bsz = r8.shape[0] if r8.dim() == 3 else 1
+    bits = torch.empty((*r8.shape[:-1], (w + 7) // 8), dtype=torch.uint8, device=device)
     if bits.numel() == 0:
         return bits
     lib = _build.load()
     with torch.cuda.device(device):
         code = lib.smh_fused_mask(
-            r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w,
-            _classify_tables(lib, device).data_ptr(), _stream_ptr(r8),
+            r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w, bsz, stride,
+            h * ((w + 7) // 8), _classify_tables(lib, device).data_ptr(), _stream_ptr(r8),
         )
     _build.check(code, "smh_fused_mask")
     LAUNCHES["fused_mask"] += 1

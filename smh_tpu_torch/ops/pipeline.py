@@ -14,6 +14,13 @@ the frame from a device-resident buffer and the changed 32 B chunks (the
 delta upload). `analyze_map_planar` is the debug re-pass, which also keeps
 the isolated marker pixels and the cropped quadrant.
 
+`analyze_batch_packed_flat` and `analyze_batch_delta_flat` run the same pass
+over B frames at once (smh_tpu's batch throughput path): the building
+blocks below take an optional leading batch dimension, kernels 1-3 run ONCE
+per batch on [B, H, W] planes cut from the rows of the [B, padded] upload,
+and only the data-dependent scales read (`scales_records`) loops over the
+frames.
+
 The window and band origins are device scalars: both are cut by a gather at
 origin + iota (scales_device._window), never by slicing at a host int.
 
@@ -56,110 +63,131 @@ LSD_CROP_MARGIN = C.LSD_MAX_GAP + C.LSD_CENTRE_MAX_DIST + 4  # 24
 
 
 def _dilate_l1_radius1_bool(m: torch.Tensor) -> torch.Tensor:
-    """Cross-shaped (L1 r=1) binary dilation via shifted ORs."""
+    """Cross-shaped (L1 r=1) binary dilation via shifted ORs, of a [..., h, w]
+    mask (each [h, w] plane on its own)."""
     out = m.clone()
-    out[1:, :] |= m[:-1, :]
-    out[:-1, :] |= m[1:, :]
-    out[:, 1:] |= m[:, :-1]
-    out[:, :-1] |= m[:, 1:]
+    out[..., 1:, :] |= m[..., :-1, :]
+    out[..., :-1, :] |= m[..., 1:, :]
+    out[..., :, 1:] |= m[..., :, :-1]
+    out[..., :, :-1] |= m[..., :, 1:]
     return out
 
 
 def _box_dilate_bool(m: torch.Tensor, radius: int) -> torch.Tensor:
-    """(2r+1)^2 separable box dilation with edge clamping."""
+    """(2r+1)^2 separable box dilation with edge clamping, of [..., h, w]."""
     out = m
     for axis in (0, 1):
         acc = out.clone()
         for d in range(1, radius + 1):
             if axis == 0:
-                acc[d:, :] |= out[:-d, :]
-                acc[:-d, :] |= out[d:, :]
+                acc[..., d:, :] |= out[..., :-d, :]
+                acc[..., :-d, :] |= out[..., d:, :]
             else:
-                acc[:, d:] |= out[:, :-d]
-                acc[:, :-d] |= out[:, d:]
+                acc[..., :, d:] |= out[..., :, :-d]
+                acc[..., :, :-d] |= out[..., :, d:]
         out = acc
     return out
 
 
 def pack_bits(mask_bool: torch.Tensor) -> torch.Tensor:
-    """bool [h, w] -> u8 [h, ceil(w/8)], MSB first (np.unpackbits order)."""
-    h, w = mask_bool.shape
+    """bool [..., h, w] -> u8 [..., h, ceil(w/8)], MSB first (np.unpackbits
+    order)."""
+    *lead, h, w = mask_bool.shape
     w8 = ((w + 7) // 8) * 8
-    padded = torch.zeros((h, w8), dtype=torch.uint8, device=mask_bool.device)
-    padded[:, :w] = mask_bool
+    padded = torch.zeros((*lead, h, w8), dtype=torch.uint8, device=mask_bool.device)
+    padded[..., :w] = mask_bool
     shifts = 7 - torch.arange(8, dtype=I32, device=mask_bool.device)
     weights = torch.ones_like(shifts) << shifts  # 128 .. 1
-    return (padded.view(h, w8 // 8, 8).to(I32) * weights).sum(dim=2).to(torch.uint8)
+    return (padded.view(*lead, h, w8 // 8, 8).to(I32) * weights).sum(dim=-1).to(torch.uint8)
 
 
 def _pack_words32(mask_bool: torch.Tensor) -> torch.Tensor:
-    """bool [h, w] -> flat u32 word plane (as int64 values < 2^32): word j of
-    row i covers pixels [32j, 32j+32), laid out so the host byte view of each
-    little-endian u32 reproduces pack_bits' MSB-first bytes (pixel p -> byte
-    lane p//8 % 4, bit 7 - p%8)."""
-    h, w = mask_bool.shape
+    """bool [..., h, w] -> flat u32 word plane [..., words] (as int64 values
+    < 2^32): word j of row i covers pixels [32j, 32j+32), laid out so the
+    host byte view of each little-endian u32 reproduces pack_bits'
+    MSB-first bytes (pixel p -> byte lane p//8 % 4, bit 7 - p%8)."""
+    *lead, h, w = mask_bool.shape
     w32 = ((w + 31) // 32) * 32
-    padded = torch.zeros((h, w32), dtype=torch.bool, device=mask_bool.device)
-    padded[:, :w] = mask_bool
+    padded = torch.zeros((*lead, h, w32), dtype=torch.bool, device=mask_bool.device)
+    padded[..., :w] = mask_bool
     p = torch.arange(32, dtype=I64, device=mask_bool.device)
     weights = torch.ones_like(p) << (8 * (p // 8) + (7 - p % 8))
-    return (padded.view(h, w32 // 32, 32).to(I64) * weights).sum(dim=2).reshape(-1)
+    return (padded.view(*lead, h, w32 // 32, 32).to(I64) * weights).sum(dim=-1).reshape(*lead, -1)
 
 
 def _compact_words(words: torch.Tensor, budget: int):
-    """First `budget` nonzero words of a flat word plane: (nz = TOTAL nonzero
-    count, idx [budget], dat [budget]); slots past min(nz, budget) are zero.
-    Binary search of each output rank over the inclusive prefix count (the
-    JAX "search" engine): static shapes, no nonzero(), no host sync."""
+    """First `budget` nonzero words of a flat word plane [..., n]: (nz = TOTAL
+    nonzero count [...], idx [..., budget], dat [..., budget]); slots past
+    min(nz, budget) are zero. Binary search of each output rank over the
+    inclusive prefix count (the JAX "search" engine): static shapes, no
+    nonzero(), no host sync; a leading batch dimension searches each plane
+    in the same call."""
     nzmask = words != 0
-    count = torch.cumsum(nzmask.to(I64), dim=0)  # inclusive: rank+1 at hits
-    nz = count[-1]
+    count = torch.cumsum(nzmask.to(I64), dim=-1)  # inclusive: rank+1 at hits
+    nz = count[..., -1]
     ranks = torch.arange(1, budget + 1, dtype=I64, device=words.device)
-    found = torch.searchsorted(count, ranks, side="left")
-    valid = torch.arange(budget, dtype=I64, device=words.device) < torch.clamp(nz, max=budget)
-    src = torch.where(valid, torch.clamp(found, max=words.numel() - 1), 0)
-    dat = torch.where(valid, words[src], 0)
+    found = torch.searchsorted(count, ranks.expand(*count.shape[:-1], budget).contiguous(), side="left")
+    valid = torch.arange(budget, dtype=I64, device=words.device) < torch.clamp(nz, max=budget)[..., None]
+    src = torch.where(valid, torch.clamp(found, max=words.shape[-1] - 1), 0)
+    dat = torch.where(valid, words.gather(-1, src), 0)
     return nz, src, dat  # src doubles as idx (0 in invalid slots)
 
 
 def _sparse_words(mask_bool: torch.Tensor, budget: int):
-    """Compact the nonzero u32 words of a bool [h, w] mask plane. Word
+    """Compact the nonzero u32 words of a bool [..., h, w] mask plane. Word
     indices are in the padded grid (sparse_word_pad bytes per row)."""
     return _compact_words(_pack_words32(mask_bool), budget)
 
 
 def _mask_bbox(m: torch.Tensor):
-    """Bounding box (y0, y1, x0, x1) of True pixels, end-exclusive.
-    Empty mask -> y0 == h, y1 == 0."""
-    rowany = m.any(dim=1)
-    colany = m.any(dim=0)
-    h, w = m.shape
+    """Bounding box (y0, y1, x0, x1) of True pixels of [..., h, w],
+    end-exclusive, each [...]. Empty mask -> y0 == h, y1 == 0."""
+    rowany = m.any(dim=-1)
+    colany = m.any(dim=-2)
+    h, w = m.shape[-2:]
     y0 = sd._first_true(rowany)
-    y1 = h - sd._first_true(rowany.flip(0))
+    y1 = h - sd._first_true(rowany.flip(-1))
     x0 = sd._first_true(colany)
-    x1 = w - sd._first_true(colany.flip(0))
+    x1 = w - sd._first_true(colany.flip(-1))
     return y0, y1, x0, x1
 
 
 def _weighted_check(plane: torch.Tensor) -> torch.Tensor:
-    """[2] u32 content checksum (sum + position-weighted sum) of a 2D plane,
-    as int64 values < 2^32 (uint32 wraparound done in int64, masked)."""
+    """[..., 2] u32 content checksum (sum + position-weighted sum) of each
+    [h, w] plane of [..., h, w], as int64 values < 2^32 (uint32 wraparound
+    done in int64, masked)."""
     p = plane.to(I64)
-    h, w = p.shape
+    h, w = p.shape[-2:]
     rows = torch.arange(1, h + 1, dtype=I64, device=p.device)
     cols = torch.arange(7, w + 7, dtype=I64, device=p.device)
-    weighted = ((p * rows[:, None]) * cols[None, :]).sum()
-    return torch.stack([p.sum(), weighted]) & U32_MASK
+    weighted = ((p * rows[:, None]) * cols[None, :]).sum(dim=(-2, -1))
+    return torch.stack([p.sum(dim=(-2, -1)), weighted], dim=-1) & U32_MASK
 
 
-def _bytes(t: torch.Tensor) -> torch.Tensor:
-    """Little-endian byte view of a tensor (the JAX bitcast_convert_type)."""
-    return t.contiguous().view(torch.uint8).reshape(-1)
+def _bytes(t: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
+    """Little-endian byte view of a tensor (the JAX bitcast_convert_type),
+    flat per frame of the leading batch shape `lead`."""
+    return t.contiguous().view(torch.uint8).reshape(*lead, -1)
 
 
-def _u32_bytes(v: torch.Tensor) -> torch.Tensor:
-    """Bytes of int64 values < 2^32 as little-endian u32 (the low 4 bytes)."""
-    return v.contiguous().view(torch.uint8).reshape(-1, 8)[:, :4].reshape(-1)
+def _u32_bytes(v: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
+    """Bytes of int64 values < 2^32 as little-endian u32 (the low 4 bytes),
+    flat per frame of the leading batch shape `lead`."""
+    return v.contiguous().view(torch.uint8).reshape(*lead, -1, 8)[..., :4].reshape(*lead, -1)
+
+
+def _window_at(plane: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
+    """plane[..., r0 : r0 + hh, c0 : c0 + ww] of [h, w] or [B, h, w] with
+    device-scalar origins r0, c0 of shape [] or [B] (in range by
+    construction): one gather over the frames (a plane is a batch of one),
+    no host sync."""
+    if plane.dim() == 2:
+        return _window_at(plane[None], r0.reshape(1), c0.reshape(1), hh, ww)[0]
+    dev = plane.device
+    rows = r0[:, None] + torch.arange(hh, dtype=I64, device=dev)
+    cols = c0[:, None] + torch.arange(ww, dtype=I64, device=dev)
+    frame = torch.arange(plane.shape[0], dtype=I64, device=dev)
+    return plane[frame[:, None, None], rows[:, :, None], cols[:, None, :]]
 
 
 # -- minimap (the plain version of kernel 2) ----------------------------------
@@ -261,9 +289,10 @@ def _minimap_walks(left_q, right_q, up_q, down_q, h: int, w: int) -> torch.Tenso
 
 
 def _ocr_preprocess_planes(r8, g8, b8, luma=None) -> torch.Tensor:
-    """Whiteish-text isolation of u8 planes (oracle: pixmath.ocr_preprocess).
-    `luma` may pass the planes' Rec.709 luma when it is already computed."""
-    h, w = r8.shape
+    """Whiteish-text isolation of u8 planes [..., h, w] (oracle:
+    pixmath.ocr_preprocess). `luma` may pass the planes' Rec.709 luma when
+    it is already computed."""
+    h, w = r8.shape[-2:]
     r = r8.to(torch.int16)
     g = g8.to(torch.int16)
     b = b8.to(torch.int16)
@@ -280,8 +309,8 @@ def _ocr_preprocess_planes(r8, g8, b8, luma=None) -> torch.Tensor:
     R = C.OCR_PREPROCESS_DILATE_RADIUS
     # The reference never examines neighbours in the last R-1 columns/rows.
     clipped = strict.clone()
-    clipped[:, max(w - R + 1, 0) :] = False
-    clipped[max(h - R + 1, 0) :, :] = False
+    clipped[..., :, max(w - R + 1, 0) :] = False
+    clipped[..., max(h - R + 1, 0) :, :] = False
     near_strict = _box_dilate_bool(clipped, R)
 
     keep = strict | (edge_cand & near_strict)
@@ -291,17 +320,17 @@ def _ocr_preprocess_planes(r8, g8, b8, luma=None) -> torch.Tensor:
 
 
 def _red_gate_roi(btn: torch.Tensor) -> torch.Tensor:
-    """btn: interleaved BGR u8 [bh, bw, 3] close-button ROI -> f32 red
-    fraction (0-dim)."""
-    bh, bw = btn.shape[:2]
-    ok = torch.ones((bh, bw), dtype=torch.bool, device=btn.device)
+    """btn: interleaved BGR u8 [..., bh, bw, 3] close-button ROI -> f32 red
+    fraction [...] (0-dim for one frame)."""
+    bh, bw = btn.shape[-3:-1]
+    ok = torch.ones(btn.shape[:-1], dtype=torch.bool, device=btn.device)
     for i, c in enumerate(C.CLOSE_DEPLOYMENT_BUTTON_COLOR):  # R, G, B
         chan = btn[..., 2 - i].to(torch.int16)
         ok = ok & ((int(c) - chan).abs() <= C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE)
     # XLA lowers the JAX package's `count / n` to count * (1/n) (docs/DESIGN.md
     # §4); the same rounding keeps the hostpack bytes equal.
     recip = hsv.f32_scalar(1.0, btn.device) / hsv.f32_scalar(bh * bw, btn.device)
-    return ok.sum().to(F32) * recip
+    return ok.sum(dim=(-2, -1)).to(F32) * recip
 
 
 # ---------------------------------------------------------------------------
@@ -318,10 +347,11 @@ def _analyze_map_planes(
     with_quiet: bool = True,
     with_isolated: bool = False,
 ) -> dict:
-    """The fused pass over the map ROI as BGR channel planes ([h, w] each).
+    """The fused pass over the map ROI as BGR channel planes ([h, w] each,
+    or [B, h, w] for a batch: kernels 1-3 then run once for all frames).
     with_isolated adds the debug views' planes: the map with non-marker
     pixels black and the bottom-right quadrant, both interleaved RGB."""
-    map_h, map_w = b8.shape
+    map_h, map_w = b8.shape[-2:]
     marker_u8, luma = kernels.classify_luma_planes(r8, g8, b8)
     marker = marker_u8 != 0
 
@@ -342,7 +372,7 @@ def _analyze_map_planes(
         brq_h, brq_w = map_h // 2, map_w // 2
 
         def brq(p):
-            return p[brq_h : brq_h + brq_h, brq_w : brq_w + brq_w]
+            return p[..., brq_h : brq_h + brq_h, brq_w : brq_w + brq_w]
 
         brq_luma = brq(luma)
         scales_bool = brq_luma != 0
@@ -350,12 +380,15 @@ def _analyze_map_planes(
         out["scales_bool"] = scales_bool
         out["scales_bits"] = pack_bits(scales_bool)
     if with_quiet:
-        out["minimap_rect"] = kernels.minimap_rect_planes(b8[None], g8[None], r8[None])[0]
+        if b8.dim() == 3:
+            out["minimap_rect"] = kernels.minimap_rect_planes(b8, g8, r8)
+        else:
+            out["minimap_rect"] = kernels.minimap_rect_planes(b8[None], g8[None], r8[None])[0]
     if with_isolated:
         brq_h, brq_w = map_h // 2, map_w // 2
         rgb = torch.stack([r8, g8, b8], dim=-1)
         out["isolated_map"] = torch.where(marker[..., None], rgb, torch.zeros_like(rgb))
-        out["cropped_brq"] = rgb[brq_h : brq_h + brq_h, brq_w : brq_w + brq_w]
+        out["cropped_brq"] = rgb[..., brq_h : brq_h + brq_h, brq_w : brq_w + brq_w, :]
     return out
 
 
@@ -379,16 +412,19 @@ def _pack_outputs(
     scales_band: int | None = None,
 ) -> dict:
     """Pack every detection-path output into ONE u8 hostpack (layout:
-    hostpack_layout with the same flags)."""
+    hostpack_layout with the same flags). For a batch (outputs with a
+    leading [B] dimension) the hostpacks are the rows of a [B, bytes]
+    tensor, and the scales read runs frame by frame."""
     lsd_bool = out["lsd_bool"]
-    map_h, map_w = lsd_bool.shape
+    *lead, map_h, map_w = lsd_bool.shape
+    lead = tuple(lead)
     crop_h = map_h if crop_h is None else crop_h
     crop_w = map_w if crop_w is None else crop_w
     y0, y1, x0, x1 = _mask_bbox(lsd_bool)
     if sparse_budget is not None or (crop_h, crop_w) == (map_h, map_w):
         # Sparse words or the full plane: the crop origin is the plane
         # origin, and the full plane's bits are kernel 3's.
-        cy0 = cx0 = torch.zeros((), dtype=I64, device=lsd_bool.device)
+        cy0 = cx0 = torch.zeros(lead, dtype=I64, device=lsd_bool.device)
         crop_bits = out["lsd_bits"]
     else:
         # Window crop at the bbox less the margin, clamped into the plane.
@@ -397,13 +433,15 @@ def _pack_outputs(
         margin = int(LSD_CROP_MARGIN)
         cy0 = torch.clamp(y0 - margin, 0, map_h - crop_h)
         cx0 = torch.clamp(x0 - margin, 0, map_w - crop_w)
-        crop_bits = pack_bits(sd._window(lsd_bool, cy0.reshape(1), cx0.reshape(1), crop_h, crop_w)[0])
-    meta = torch.stack([y0, y1, x0, x1, cy0, cx0]).to(I32)
-    parts = [_bytes(red.reshape(1)), _u32_bytes(out["ui_check"]), _bytes(meta)]
+        crop_bits = pack_bits(_window_at(lsd_bool, cy0, cx0, crop_h, crop_w))
+    meta = torch.stack([y0, y1, x0, x1, cy0, cx0], dim=-1).to(I32)
+    parts = [_bytes(red.reshape(*lead, 1), lead), _u32_bytes(out["ui_check"], lead), _bytes(meta, lead)]
     banded = with_ocr and scales_inline in ("binary", "gray") and scales_band is not None
+    if banded and lead:
+        raise ValueError("the scales row band is per frame")
     if with_ocr:
-        scheck = torch.cat([_weighted_check(out["scales_bits"]), _weighted_check(out["ocr_img"])])
-        parts.append(_u32_bytes(scheck))
+        scheck = torch.cat([_weighted_check(out["scales_bits"]), _weighted_check(out["ocr_img"])], dim=-1)
+        parts.append(_u32_bytes(scheck, lead))
         keep = out["ocr_img"] < OCR_BINARY_THRESHOLD  # the text mask
         if banded:
             # OCR text-row band: every text pixel lies in the keep mask's row
@@ -421,32 +459,41 @@ def _pack_outputs(
             else:
                 parts.append(_row_band(out["ocr_img"], b0, scales_band).reshape(-1))
         elif scales_inline == "binary":
-            parts += [out["scales_bits"].reshape(-1), pack_bits(keep).reshape(-1)]
+            parts += [out["scales_bits"].reshape(*lead, -1), pack_bits(keep).reshape(*lead, -1)]
         elif scales_inline == "gray":
-            parts += [out["scales_bits"].reshape(-1), out["ocr_img"].reshape(-1)]
+            parts += [out["scales_bits"].reshape(*lead, -1), out["ocr_img"].reshape(*lead, -1)]
         elif scales_inline == "device":
             if templates is None:
                 raise ValueError('scales_inline="device" needs the template tensor')
-            rec = sd.scales_records(keep, out["scales_bool"], templates)
-            parts.append(_bytes(rec))
+            if lead:
+                # Data-dependent bands, runs and words: one read per frame.
+                rec = torch.stack([
+                    sd.scales_records(keep[i], out["scales_bool"][i], templates) for i in range(lead[0])
+                ])
+            else:
+                rec = sd.scales_records(keep, out["scales_bool"], templates)
+            parts.append(_bytes(rec, lead))
         elif scales_inline != "none":
             raise ValueError(f"unsupported scales_inline {scales_inline!r}")
     if with_quiet:
-        parts.append(_bytes(out["minimap_rect"]))
+        parts.append(_bytes(out["minimap_rect"], lead))
     if sparse_budget is not None:
         nz, sp_idx, sp_dat = _sparse_words(lsd_bool, sparse_budget)
-        parts += [_bytes(nz.to(I32).reshape(1)), _bytes(sp_idx.to(I32)), _u32_bytes(sp_dat)]
+        parts += [_bytes(nz.to(I32).reshape(*lead, 1), lead), _bytes(sp_idx.to(I32), lead),
+                  _u32_bytes(sp_dat, lead)]
     else:
-        parts.append(crop_bits.reshape(-1))
+        parts.append(crop_bits.reshape(*lead, -1))
     res = {
-        "hostpack": torch.cat(parts),
+        "hostpack": torch.cat(parts, dim=-1),
         "ui": out["ui"],
         "lsd_bits": out["lsd_bits"],  # full mask: the window/sparse-miss fallback
     }
     if with_ocr and (scales_inline in ("none", "device") or banded):
         # The lazy transport's payload, and the fallback of the band (a miss)
         # and of the device read (overflow with nothing trusted).
-        res["scalespack"] = torch.cat([out["scales_bits"].reshape(-1), out["ocr_img"].reshape(-1)])
+        res["scalespack"] = torch.cat(
+            [out["scales_bits"].reshape(*lead, -1), out["ocr_img"].reshape(*lead, -1)], dim=-1
+        )
     return res
 
 
@@ -508,6 +555,79 @@ def analyze_delta_flat(
     rois.view(-1, chunk).index_copy_(0, idx, data)
     out = analyze_packed_flat(rois, **kw)
     out["resident"] = rois
+    return out
+
+
+def analyze_batch_packed_flat(
+    rois: torch.Tensor,
+    map_h: int,
+    map_w: int,
+    btn_h: int,
+    btn_w: int,
+    grayscale: bool,
+    with_ocr: bool = True,
+    crop_h: int | None = None,
+    crop_w: int | None = None,
+    scales_inline: str = "none",
+    sparse_budget: int | None = None,
+    templates: torch.Tensor | None = None,
+    resident_row: int | None = None,
+) -> dict:
+    """The batched fused pass: B flat buffers as the rows of u8 [B, padded]
+    (each laid out as analyze_packed_flat's) -> {"hostpack" [B, bytes],
+    "lsd_bits" [B, map_h, ceil(map_w/8)], "scalespack" [B, bytes]?,
+    "resident"?}. Frame b's planes are views of row b (no layout copy), so
+    kernels 1-3 run once for the batch on [B, H, W] planes that lie a row
+    apart; the scales read loops over the frames. `resident_row` returns a
+    copy of that row as "resident": it seeds the batch delta chain. The
+    JAX counterpart is smh_tpu.ops.pipeline._analyze_batch_packed(...,
+    channels=3); each row's outputs equal analyze_packed_flat's."""
+    if rois.dtype != torch.uint8 or rois.dim() != 2:
+        raise ValueError("rois must be a u8 [B, padded] tensor")
+    bsz = rois.shape[0]
+    map_bytes = map_h * map_w * 3
+    planes = rois[:, :map_bytes].view(bsz, 3, map_h, map_w)  # views: no layout copy
+    btn = rois[:, map_bytes : map_bytes + btn_h * btn_w * 3].view(bsz, btn_h, btn_w, 3)
+    out = _analyze_map_planes(planes[:, 0], planes[:, 1], planes[:, 2], grayscale, with_ocr=with_ocr)
+    packed = _pack_outputs(
+        out, _red_gate_roi(btn), with_ocr, True, scales_inline, sparse_budget=sparse_budget,
+        templates=templates, crop_h=crop_h, crop_w=crop_w,
+    )
+    res = {"hostpack": packed["hostpack"], "lsd_bits": packed["lsd_bits"]}
+    if "scalespack" in packed:
+        res["scalespack"] = packed["scalespack"]
+    if resident_row is not None:
+        res["resident"] = rois[resident_row].clone()
+    return res
+
+
+def analyze_batch_delta_flat(
+    resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int, **kw
+) -> dict:
+    """The batched delta pass: B frames as chunk updates against the
+    device-resident chain, `buf` = B index tables of `bucket` int32 then B
+    blocks of `bucket` chunks of `chunk` bytes. Frame i is frame i-1 (frame
+    0: `resident`) with its updates applied, in chain order, into the rows
+    of a FRESH [B, padded] buffer (`resident` is never written: a consume
+    view may still hold it); then analyze_batch_packed_flat (`kw` are its
+    flags) runs once over the rows. Returns its outputs plus "resident",
+    the last frame (the next batch's chain input). The JAX counterpart is
+    smh_tpu.ops.pipeline._analyze_batch_delta(..., channels=3), whose
+    lax.scan this loop of two copies per frame replaces."""
+    per_frame = bucket * (4 + chunk)
+    if buf.dtype != torch.uint8 or buf.numel() == 0 or buf.numel() % per_frame:
+        raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold frames of {bucket} chunks of {chunk}")
+    bsz = buf.numel() // per_frame
+    idxs = buf[: 4 * bucket * bsz].view(I32).to(I64).view(bsz, bucket)
+    datas = buf[4 * bucket * bsz :].view(bsz, bucket, chunk)
+    rois = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
+    prev = resident
+    for i in range(bsz):
+        rois[i].copy_(prev)
+        rois[i].view(-1, chunk).index_copy_(0, idxs[i], datas[i])
+        prev = rois[i]
+    out = analyze_batch_packed_flat(rois, **kw)
+    out["resident"] = rois[bsz - 1].clone()
     return out
 
 

@@ -7,7 +7,8 @@ Run from the root of a checkout (the inputs come from chip_smoke.py). Builds
 csrc/classify_luma.cu and csrc/fused_mask.cu as they are, with their shape
 constants changed and with parts switched off (VARIANTS), and with
 --against the same two sources from DIR/smh_tpu_torch/csrc (an unpacked
-archive of another commit), each build into its own library under
+archive of another commit whose C entry points take the batch strides,
+as these do), each build into its own library under
 smh_tpu_torch/build/probe-*, one nvcc per build, all started together.
 Every build but the ablations must give the plain twins' bytes on every
 input. Then, in
@@ -175,13 +176,14 @@ def calls(lib, r8, g8, b8) -> dict:
 
     def classify(_tables=tables):  # the closures keep the tables alive
         code = lib.smh_classify_luma(r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), marker.data_ptr(),
-                                     luma.data_ptr(), r8.numel(), params, torch.cuda.current_stream().cuda_stream)
+                                     luma.data_ptr(), r8.numel(), 1, r8.numel(), r8.numel(), params,
+                                     torch.cuda.current_stream().cuda_stream)
         _build.check(code, "smh_classify_luma")
         return marker, luma
 
     def fused(_tables=tables):
-        code = lib.smh_fused_mask(r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w, params,
-                                  torch.cuda.current_stream().cuda_stream)
+        code = lib.smh_fused_mask(r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), bits.data_ptr(), h, w, 1,
+                                  r8.numel(), bits.numel(), params, torch.cuda.current_stream().cuda_stream)
         _build.check(code, "smh_fused_mask")
         return (bits,)
 

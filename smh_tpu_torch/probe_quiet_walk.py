@@ -75,7 +75,7 @@ def device_us(lib, planes, calls: int = 50) -> dict:
 
     def call():
         code = lib.smh_quiet_walk(*(p.data_ptr() for p in planes), scratch.data_ptr(), out.data_ptr(),
-                                  bsz, h, w, torch.cuda.current_stream().cuda_stream)
+                                  bsz, h, w, h * w, 4, torch.cuda.current_stream().cuda_stream)
         _build.check(code, "smh_quiet_walk")
 
     for _ in range(20):

@@ -239,7 +239,8 @@ def main() -> int:
         times = {n: [] for n in fns}
         launches, host = {}, {}
         for name in order:
-            us, per_call = cs.device_profile(fns[name], n=50)
+            prof = cs.device_profile(fns[name], n=50)
+            us, per_call = prof["us"], prof["launches"]
             times[name].append(us)
             launches[name] = per_call
         for name, fn in fns.items():

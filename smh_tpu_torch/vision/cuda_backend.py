@@ -171,6 +171,25 @@ def _delta_bucket(n: int, n_chunks: int) -> Optional[int]:
     return None
 
 
+def _refine_subchunks(ne: np.ndarray, changed: np.ndarray) -> np.ndarray:
+    """Two-level delta refine: given the u64-view elementwise compare `ne`
+    [n_chunks, words] and the changed 128 B chunk indices, the changed 32 B
+    sub-chunk indices (a copy of smh_tpu's; the batch pipeline's numpy
+    diff, where the native module is missing)."""
+    sub = _DELTA_CHUNK // _DELTA_SUB
+    if changed.size == 0:
+        return np.zeros(1, dtype=np.int32)  # flags may still differ
+    d32 = ne[changed].reshape(changed.size, sub, -1).any(axis=2)
+    return (changed[:, None] * sub + np.arange(sub, dtype=np.int32))[d32]
+
+
+def _split_planes(roi: np.ndarray, planes: list) -> None:
+    """Write roi's first three channels into the three plane views
+    (smh_tpu's _split_planes without the cv2 fast path)."""
+    for c in range(3):
+        planes[c][...] = roi[..., c]
+
+
 def _pack_rois_bgr(
     map_roi: np.ndarray, btn_roi: np.ndarray, pad_to: int, out: Optional[np.ndarray] = None
 ) -> np.ndarray:

@@ -1,8 +1,8 @@
 """The port's app entry point (smh_tpu_torch.app) on the CPU: the command
 line, the port's App and state, a pipelined run that delivers an update,
 --debug-web and /api/debug-view against smh_tpu's App (each App with its
-own package's engine, settings, sources and views), and the flag that is
-not ported yet."""
+own package's engine, settings, sources and views). --warmup and --worker
+have files of their own (test_torch_warmup.py, test_torch_worker.py)."""
 
 import io
 import time
@@ -30,24 +30,19 @@ torch.set_num_threads(1)
 
 
 def test_parser_mirrors_the_jax_app_without_warmup():
+    """The JAX app's flags, --warmup and --worker among them, with --device
+    and the backends "cuda" and "numpy"."""
     args = tapp.build_parser().parse_args(["--synthetic", "--pipelined", "--no-web"])
     assert args.synthetic and args.pipelined and args.no_web
     assert args.device == "cuda" and args.backend is None and not args.sync_scales
+    assert not args.warmup and not args.worker
     args = tapp.build_parser().parse_args(["--backend", "numpy", "--device", "cuda:1", "--sync-scales"])
     assert (args.backend, args.device, args.sync_scales) == ("numpy", "cuda:1", True)
-    for bad in (["--backend", "tpu"], ["--warmup"], ["--synthetic", "--image", "x.png"]):
+    args = tapp.build_parser().parse_args(["--synthetic", "--warmup", "--worker", "--device", "cpu"])
+    assert args.warmup and args.worker and args.device == "cpu"
+    for bad in (["--backend", "tpu"], ["--synthetic", "--image", "x.png"]):
         with pytest.raises(SystemExit):
             tapp.build_parser().parse_args(bad)
-
-
-@pytest.mark.parametrize("flag", ["--worker"])
-def test_flags_not_ported_exit_with_a_message(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        tapp.main(["--synthetic", "--no-web", flag])
-    assert "not ported" in str(exc.value.code)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tapp.App(StaticSource(testing.make_frame(640, 480)), serve=False, device="cpu",
-                 **{flag[2:].replace("-", "_"): True})
 
 
 def test_cuda_asked_for_without_a_card_raises():
@@ -155,4 +150,4 @@ def test_debug_web_builds_the_state_as_the_jax_app():
         app.state.close()
         ref.state.close()
     assert tapp.build_parser().parse_args(["--synthetic", "--debug-web"]).debug_web
-    assert "debug_web" not in tapp.NOT_PORTED
+    assert not hasattr(tapp, "NOT_PORTED")  # every flag of the JAX app is ported

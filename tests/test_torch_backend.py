@@ -219,3 +219,19 @@ def test_hostpack_layout_used_by_the_backend():
     )
     assert be._results["hostpack"].numel() == layout["__total__"]
     assert be.minimap_rect() is not None and be.scales_check() is not None
+
+
+def test_backends_satisfy_the_vision_backend_protocol():
+    """The port's copy of smh_tpu's runtime-checkable VisionBackend: the CUDA
+    backend (on the CPU here) and the numpy oracle implement it, as
+    smh_tpu's TpuBackend and oracle implement the original."""
+    from smh_tpu.vision.backend import VisionBackend as JVisionBackend
+    from smh_tpu.vision.reference import ReferenceBackend as JReferenceBackend
+    from smh_tpu_torch.vision.backend import VisionBackend
+    from smh_tpu_torch.vision.reference import ReferenceBackend
+
+    for be in (cb.CudaBackend(device="cpu"), ReferenceBackend()):
+        assert isinstance(be, VisionBackend), type(be).__name__
+    for be in (tb.TpuBackend(), JReferenceBackend()):
+        assert isinstance(be, JVisionBackend), type(be).__name__
+    assert not isinstance(object(), VisionBackend)

@@ -84,26 +84,38 @@ COPIES = {
     "squadex/__init__.py": set(),
     "squadex/capture.py": set(),
     "squadex/heightmaps.py": set(),
+    "squadex/solutions.py": {"__doc__"},  # cites the reference's sources without a machine path
+    "squadex/milliradians.py": {"__doc__"},
     "web/__init__.py": set(),
     "web/protocol.py": set(),
     "web/server.py": set(),
     "heightmaps/__init__.py": set(),
     "heightmaps/ripper.py": set(),
     "heightmaps/browser.py": set(),
+    "heightmaps/stub_ripper.py": {"__doc__"},  # run as smh_tpu_torch.heightmaps.stub_ripper
+    "ocr/tessdata_gen.py": {"__doc__"},
+    # Builds into smh_tpu_torch/build/smhtess-<hash>/ under a temporary name
+    # renamed into place, as native/__init__.py builds smhnative.
+    "native/tessmock.py": {"__doc__", "_SO", "_BUILD_ROOT", "_FLAGS", "lib_path", "import hashlib", "import os"},
+    "vision/backend.py": {"__doc__"},  # implemented by CudaBackend
+    # --device to the child and its VisionState; a CUDA init and an 8-byte
+    # round trip as the device attach; no compile cache; spawned as
+    # -m smh_tpu_torch.worker; the socket in the temporary directory.
+    "worker.py": {
+        "__doc__", "_serve", "main", "WorkerClient.__init__", "WorkerClient._spawn", "import tempfile",
+    },
     # Scale texts rendered from the bundled fonts.
     "testing.py": {"__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS"},
-    # No --warmup, no compile cache, --worker exits "not ported", --device.
-    "app.py": {
-        "__doc__", "NOT_PORTED", "App.__init__", "App._run_worker_feeder", "App._wake", "App.start",
-        "App.stop", "build_parser", "main", "import numpy as np",
-    },
+    # --device (the App, its worker and --warmup run on it), no compile cache.
+    "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},
 }
-DATA_FILES = ["consts.toml", "native/smhnative.cpp", "web/www/index.html"]
+DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/www/index.html"]
 # The port's own modules: the device half and the package's entry points.
 PORT_ONLY = {
     "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
-    "ops/pipeline.py", "ops/scales_device.py", "vision/__init__.py", "vision/cuda_backend.py",
+    "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
+    "vision/cuda_backend.py",
 }
 
 
@@ -424,3 +436,99 @@ def test_app_on_the_numpy_oracle_matches_smh_tpus_app():
     assert len(got.markers) == 1
     assert port._api("/api/status", {}) == ref._api("/api/status", {})
     assert port._api("/api/status", {})[1]["backend"] == "numpy"
+
+
+# -- firing solutions, the ripper stand-in, the Tesseract mock ---------------------------
+
+
+def test_milliradians_equal_over_the_table():
+    from smh_tpu.squadex import milliradians as jmil
+    from smh_tpu_torch.squadex import milliradians as tmil
+
+    for meters in np.linspace(0.0, 1400.0, 281):
+        for alt in (-120.0, -7.5, 0.0, 33.0, 250.0):
+            got, want = tmil.calc(float(meters), alt), jmil.calc(float(meters), alt)
+            assert got == want or (np.isnan(got) and np.isnan(want)), (meters, alt)
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_solutions_equal_on_seeded_lines(seed):
+    """solve() through the heightmap (fitted and offset), by the scale
+    ratio alone, and with neither."""
+    from smh_tpu.geometry import Line as JLine
+    from smh_tpu.squadex import solutions as jsol
+    from smh_tpu_torch.geometry import Line
+    from smh_tpu_torch.squadex import solutions as tsol
+
+    rng = np.random.default_rng(30 + seed)
+    data = rng.integers(0, 65535, (64, 80), dtype=np.uint16)
+    hm = dict(width=80, height=64, bounds=((-4, -3), (84, 67)), scale=(1.0, 1.0, 512.0))
+    hms = Heightmap(data=data, **hm), JHeightmap(data=data, **hm)
+    rects = Rect(left=10, top=20, right=410, bottom=340), JRect(left=10, top=20, right=410, bottom=340)
+    for _ in range(8):
+        (x0, y0), (x1, y1) = rng.uniform(0, 420, (2, 2))
+        ends = ((float(x0), float(y0)), (float(x1), float(y1)))
+        for ratio, bounds, fit in ((None, True, False), (None, True, True), (2.542373, False, False), (None, False, False)):
+            got, want = (
+                sol.solve(L.from_tuple(ends), ratio, r if bounds else None, h if bounds else None, fit)
+                for sol, L, r, h in ((tsol, Line, rects[0], hms[0]), (jsol, JLine, rects[1], hms[1]))
+            )
+            assert (got is None) == (want is None)
+            if got is not None:
+                a, b = np.array(dataclasses.astuple(got), float), np.array(dataclasses.astuple(want), float)
+                np.testing.assert_array_equal(a, b)
+
+
+def test_stub_ripper_writes_the_same_bytes(monkeypatch):
+    import io
+    import sys
+
+    from smh_tpu.heightmaps import stub_ripper as jstub
+    from smh_tpu_torch.heightmaps import stub_ripper as tstub
+
+    outs = []
+    for mod in (tstub, jstub):
+        for argv in (["-p", "paks"], ["-p", "paks", "-m", "Maps/Narva/Narva_RAAS_v1.umap", "-k", "0x0"],
+                     ["-m", "Maps/Empty.umap"]):
+            buf = io.BytesIO()
+            monkeypatch.setattr(sys, "stdout", io.TextIOWrapper(buf))
+            assert mod.main(argv) == 0
+            outs.append(buf.getvalue())
+    assert outs[:3] == outs[3:]
+    assert len(outs[1]) > 257 * 257 * 2
+
+
+def test_traineddata_bytes_equal(tmp_path):
+    from smh_tpu.ocr import tessdata_gen as jgen
+    from smh_tpu_torch.ocr import tessdata_gen as tgen
+
+    got = tgen.ensure_default(tmp_path / "port").read_bytes()
+    assert got == jgen.write_traineddata(tmp_path / "jax" / "eng.traineddata").read_bytes()
+    assert got[:4] == b"SMHT"
+
+
+def test_smhtess_mocks_read_alike(tmp_path, monkeypatch):
+    """The port's smhtess build (smh_tpu_torch/build/smhtess-<hash>/) and the
+    JAX package's read the same OCR band alike through one binding."""
+    from smh_tpu.native import tessmock as jmock
+    from smh_tpu_torch.native import tessmock as tmock
+    from smh_tpu_torch.ocr import tesseract as ttess
+    from smh_tpu_torch.ocr.tessdata_gen import ensure_default
+
+    so = tmock.lib_path()
+    assert so is not None and so.parent.parent == tmock._BUILD_ROOT
+    assert tmock.lib_path() == so  # built once
+    jso = jmock.lib_path()
+    if jso is None:
+        pytest.skip("no C++ toolchain for the JAX package's smhtess")
+    ensure_default(tmp_path)
+    frame = testing.make_frame(1280, 720, scale_texts=[("900m", (60, 170))], scale_bars=[(60, 200, 120, 1)])
+    be = ReferenceBackend()
+    be.load_frame(frame)
+    assert be.crop_to_map(True) is not None
+    img = be.ocr_preprocess()
+    reads = []
+    for lib in (so, jso):
+        monkeypatch.setenv("SMH_TESS_LIB", str(lib))
+        reads.append([dataclasses.astuple(r) for r in ttess.TesseractEngine(tessdata=str(tmp_path)).read(img, dpi=96)])
+    assert reads[0] == reads[1] and "900m" in {r[0] for r in reads[0]}

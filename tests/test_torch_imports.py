@@ -111,6 +111,24 @@ def test_app_cli_runs_without_smh_tpu(tmp_path):
     assert not _leaked(imported), _leaked(imported)
 
 
+def test_worker_child_imports_neither_jax_nor_smh_tpu():
+    """The child WorkerClient spawns (`python -m smh_tpu_torch.worker`, on
+    the CPU here) warms up and reports ready; `-X importtime` (through
+    PYTHONPROFILEIMPORTTIME) lists every module it imported into its stderr
+    log, and none is of jax or smh_tpu."""
+    from smh_tpu_torch.worker import WorkerClient
+
+    wc = WorkerClient(640, 360, lambda msg: None, env={"PYTHONPROFILEIMPORTTIME": "1"}, device="cpu")
+    try:
+        assert wc.wait_ready_progress(idle_timeout=60, max_s=120), wc.diagnose()
+        err = pathlib.Path(wc._stderr_path).read_text()
+    finally:
+        wc.close()
+    imported = [line.split("|")[-1].strip() for line in err.splitlines() if line.startswith("import time:")]
+    assert "smh_tpu_torch.vision.pipeline" in imported and "smh_tpu_torch.ocr.smhocr" in imported
+    assert not _leaked(imported), _leaked(imported)
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     """No `import jax...` or `import smh_tpu...` (nor `from` forms) in any

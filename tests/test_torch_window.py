@@ -309,11 +309,12 @@ def test_band_textless_without_a_fetch():
 
 
 def _tesseract(monkeypatch, tmp_path):
-    """Each package's Tesseract binding over the repo's C shim of the API."""
-    from smh_tpu.native import tessmock
+    """Each package's Tesseract binding over the port's C shim of the API
+    and the port's traineddata."""
     from smh_tpu.ocr import tesseract as jtess
-    from smh_tpu.ocr.tessdata_gen import ensure_default
+    from smh_tpu_torch.native import tessmock
     from smh_tpu_torch.ocr import tesseract as ttess
+    from smh_tpu_torch.ocr.tessdata_gen import ensure_default
 
     so = tessmock.lib_path()
     if so is None:
