@@ -83,10 +83,22 @@ each printing a line, each failing loudly:
                to the per-frame VisionState's and to the oracle's; stream()
                equals process(); CUDA launches per batch (profiler), H2D
                bytes per batch, frames/s of process() and stream();
- 12. warmup  — two child processes, with and without ops/warmup.py: the
+ 12. mesh    — the multi-device path (smh_tpu_torch/parallel/) on a mesh
+               of cuda:0 repeated (and of distinct cards where there are
+               two or more): kernel 4 over a batch of masks (B = 1, 3, 8 at
+               both map shapes) bit-equal to its plain version and to the
+               single-mask kernel, one launch per call, its device us beside
+               8 seeds on one mask; analyze_batch at 1080p on (dp, sp) =
+               (2, 2) and (1, 3) (kernels 1 and 3 on row blocks with
+               halos) equal to the unsharded analyze_frame on the CPU, the
+               kernels' plain versions; full_step's winners; the dry run's
+               full_step check; BatchPipeline(batch=8) over the drag on
+               dp = 4 equal to one device, kernels 1-3 at dp launches per
+               batch, frames/s beside one device's;
+ 13. warmup  — two child processes, with and without ops/warmup.py: the
                first process() ms of each; after the warmup the first frame
                builds nothing and launches no table kernel;
- 13. worker  — WorkerClient at 1080p on the card: the ready event, a child
+ 14. worker  — WorkerClient at 1080p on the card: the ready event, a child
                that imports neither jax nor smh_tpu, a recycle and the
                recovery, results equal to the in-process state's; then the
                CLI's App with --worker delivers an update.
@@ -704,6 +716,7 @@ def phase_ray_march(dev: torch.device) -> dict:
         "source": "smh_tpu_torch/csrc/ray_march.cu",
         "replaces": "smh_tpu/ops/lsd.py:96",
         "max_abs_err": err, **times[1080], "library_ms": None, "shape": "822x986, 8 seeds",
+        "device_us_by_height": {h: t["device_us"] for h, t in times.items()},
     }
 
 
@@ -1186,11 +1199,9 @@ def drag_frames(w: int, h: int, pan: bool = False) -> tuple:
 
 
 def summarize(r) -> tuple:
-    return (
-        tuple((l.p0.x, l.p0.y, l.p1.x, l.p1.y) for l in r.markers),
-        r.meters_to_px_ratio,
-        r.minimap_bounds,
-    )
+    from smh_tpu_torch.parallel.dryrun import summarize as values
+
+    return values(r)
 
 
 _TRUTHS: dict = {}  # (device, id(frames), engine_factory) -> (frames, truth)
@@ -1640,6 +1651,177 @@ def phase_batch(dev: torch.device, card: str) -> dict:
     return launches
 
 
+MESH_BATCHES = (1, 3, 8)  # masks per call of kernel 4 over a batch of masks
+
+
+def _count(launches: dict, fn):
+    """fn()'s result, its kernel launches added into `launches` (counts set
+    to 0 just before and read just after)."""
+    from smh_tpu_torch.ops import kernels as K
+
+    torch.cuda.synchronize()
+    K.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    for name, n in K.LAUNCHES.items():
+        launches[name] = launches.get(name, 0) + n
+    return out
+
+
+def mesh_masks(rng, w: int, h: int, b: int) -> tuple:
+    """b different line masks at a map shape (the ray march's lines moved 3
+    px right per mask) and one seed on each: on a line for even b, on the
+    background for odd. -> (u8 [b, mh, mw] on the host, f32 [b, 2])."""
+    from smh_tpu_torch import consts as C
+
+    gm = C.map_geometry(w, h)
+    masks, pts = [], []
+    for i in range(b):
+        lines = [((min(x0 + 3 * i, gm.map_w - 1), y0), (min(x1 + 3 * i, gm.map_w - 1), y1))
+                 for (x0, y0), (x1, y1) in ray_march_lines(w, h)]
+        masks.append(line_mask(gm.map_h, gm.map_w, lines))
+        pts.append(ray_march_seeds(rng, masks[-1], 2, edge=False)[i % 2])
+    return np.stack(masks), np.stack(pts).astype(np.float32)
+
+
+def _mesh_kernel(dev: torch.device, single_b8: dict) -> dict:
+    """Kernel 4 over a batch of masks: bit-equal to the plain version and
+    to the single-mask kernel mask by mask, one launch per call; device us
+    per call beside 8 seeds on one mask."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch.ops import lsd as L
+
+    rng = np.random.default_rng(4)
+    mg = int(C.LSD_MAX_GAP)
+    cos_t, sin_t = L.theta_tables(dev)
+    table = {}
+    for w, h in LIVE_SIZES:
+        gm = C.map_geometry(w, h)
+        k_total = L._max_k(gm.map_h, gm.map_w)  # march_batch's fixed depth
+        shape = f"{gm.map_h}x{gm.map_w}"
+        for b in MESH_BATCHES:
+            masks, pts = mesh_masks(rng, w, h, b)
+            masks_t, pts_t = torch.from_numpy(masks).to(dev), torch.from_numpy(pts).to(dev)
+            got = L.ray_march(masks_t, pts_t, mg, k_total, cos_t, sin_t)
+            ex, ey = L.march_plain(masks_t, pts_t, mg, k_total, cos_t, sin_t)
+            plain = (ex, ey, *L.finalize_plain(pts_t, ex, ey))
+            for i in range(b):
+                one = L.ray_march(masks_t[i], pts_t[i : i + 1], mg, k_total, cos_t, sin_t)
+                for name, g_, p_, o_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got, plain, one):
+                    require(torch.equal(g_[i], p_[i]), f"ray_march over masks {name} != plain at {shape} B={b}, mask {i}")
+                    require(torch.equal(g_[i], o_[0]), f"ray_march over masks {name} != the single-mask kernel at "
+                            f"{shape} B={b}, mask {i}")
+            prof = device_profile(lambda: L.ray_march(masks_t, pts_t, mg, k_total, cos_t, sin_t), names=("ray_march",))
+            require(prof["launches"] == 1.0 and prof["named"]["ray_march"] == 1.0,
+                    f"ray_march over {b} masks: {prof['launches']} launches per call, not 1")
+            table.setdefault(shape, {})[b] = {"us": prof["us"], "us_per_mask": prof["us"] / b,
+                                              "longest_ray_px": float(got[4].max().sqrt())}
+        # Like for like at B = 8: the same 8 seeds on mask 0, by the
+        # single-mask kernel and by the batch of masks over 8 copies of it.
+        copies = masks_t[:1].expand(8, -1, -1).contiguous()
+        one = L.ray_march(masks_t[0], pts_t, mg, k_total, cos_t, sin_t)
+        for name, g_, o_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"),
+                                L.ray_march(copies, pts_t, mg, k_total, cos_t, sin_t), one):
+            require(torch.equal(g_, o_), f"ray_march over 8 copies of a mask {name} != the single-mask kernel at {shape}")
+        us_one = device_profile(lambda: L.ray_march(masks_t[0], pts_t, mg, k_total, cos_t, sin_t))["us"]
+        us_copies = device_profile(lambda: L.ray_march(copies, pts_t, mg, k_total, cos_t, sin_t))["us"]
+        table[shape]["b8_one_mask"] = {"single_mask_us": us_one, "batch_of_copies_us": us_copies,
+                                       "longest_ray_px": float(one[4].max().sqrt())}
+        print(f"mesh: ray_march over a batch of masks at {shape} k_total={k_total}: bit-equal to march_plain and to "
+              f"the single-mask kernel mask by mask, 1 launch per call; device us per call "
+              + ", ".join(f"B={b} {table[shape][b]['us']:.2f} ({table[shape][b]['us_per_mask']:.2f} per mask, longest "
+                          f"ray {table[shape][b]['longest_ray_px']:.1f} px)" for b in MESH_BATCHES)
+              + f"; the B=8 seeds on mask 0 (longest ray {float(one[4].max().sqrt()):.1f} px): single-mask kernel "
+              f"{us_one:.2f}, batch of 8 copies {us_copies:.2f}; the kernel phase's single-mask B=8 (its seeds, k_total "
+              f"from max_len) {single_b8[h]:.2f}", flush=True)
+    return table
+
+
+def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
+    """The multi-device path on a mesh of `dev` repeated (and, with two or
+    more cards, of distinct cards): kernel 4 over a batch of masks;
+    analyze_batch at 1080p on (dp, sp) = (2, 2) and (1, 3), so kernels 1 and
+    3 run on row blocks with halos, against the unsharded analyze_frame on
+    the CPU (the kernels' plain versions); full_step's winners against the
+    per-frame march; the dry run's full_step check on random frames;
+    BatchPipeline(batch=8) on dp = 4 against one device over the drag,
+    kernels 1-3 at dp launches per batch. Returns the kernel launches of
+    the driven calls."""
+    from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+    from smh_tpu_torch.parallel import dryrun, spmd
+    from smh_tpu_torch.vision.batch import BatchPipeline
+
+    secs = {}
+    t0 = time.perf_counter()
+    table = _mesh_kernel(dev, single_b8)
+    secs["kernel"] = time.perf_counter() - t0
+    launches: dict = {}
+    meshes = [("one card", [dev] * 4)]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(("distinct cards", [torch.device(f"cuda:{i % torch.cuda.device_count()}") for i in range(4)]))
+    frames, pts = dryrun.seam_frames(4)
+    t0 = time.perf_counter()
+    plain = [opp.analyze_frame(f, device="cpu") for f in frames]
+    secs["plain"] = time.perf_counter() - t0
+    for label, devices in meshes:
+        t0 = time.perf_counter()
+        for dp, sp in ((2, 2), (1, 3)):
+            mesh = spmd.make_mesh(devices[: dp * sp], sp=sp)
+            got = spmd.gather(_count(launches, lambda: spmd.analyze_batch(frames, mesh)), "cpu")
+            for i, want in enumerate(plain):
+                for k, v in want.items():
+                    require(torch.equal(got[k][i], v),
+                            f"analyze_batch ({dp}, {sp}) {k} != the plain analyze_frame on the CPU, frame {i}")
+            require(len(got) == 10, f"analyze_batch keys {sorted(got)}")
+        mesh = spmd.make_mesh(devices, sp=2)
+        out = spmd.gather(_count(launches, lambda: spmd.full_step(frames, pts, mesh)), "cpu")
+        for i, want in enumerate(plain):
+            end, length = dryrun.single_march(want["lsd_mask"].to(devices[0]), pts[i])
+            require(torch.equal(out["best_end"][i], end) and torch.equal(out["best_length_sqr"][i], length),
+                    f"full_step winner {out['best_end'][i]} != the per-frame march's {end}, frame {i}")
+        step = _count(launches, lambda: dryrun.check_step(devices))
+        secs[f"analyze ({label})"] = time.perf_counter() - t0
+        print(f"mesh: on {label} {[str(d) for d in devices]}: analyze_batch at 1080p on (dp, sp) = (2, 2) and (1, 3) "
+              f"(a marker line across every seam, scale text across sp = 3's second) == the plain analyze_frame on "
+              f"the CPU for every output and frame; full_step's winners == the per-frame march (longest "
+              f"{float(out['best_length_sqr'].max().sqrt()):.1f} px); dry run: {step}", flush=True)
+
+    # BatchPipeline over the drag: one device, then dp = 4.
+    w, h = LIVE_SIZES[0]
+    batches = _batches(list(drag_frames(w, h)), BATCH)
+    rates, results = {}, {}
+    t0 = time.perf_counter()
+    for label, kw in (("one device", {"device": dev}), ("dp=4", {"mesh": spmd.make_mesh([dev] * 4)})):
+        bp = BatchPipeline(w, h, batch=BATCH, ocr_engine=SmhOcrEngine(), **kw)
+        try:
+            run = _count(launches, lambda: [bp.process(b) for b in batches])
+            results[label] = [[summarize(r) for r in b] for b in run]
+            stats = dict(bp.stats)
+            if "mesh" in kw:
+                require(stats["full_batches"] == len(batches) and stats["delta_batches"] == 0,
+                        f"{label}: not a full upload per batch: {stats}")
+                prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS, tries=6)
+                require(prof["named"] == {n: 4.0 for n in K.FUSED_PASS},
+                        f"{label}: kernels 1-3 per batch (profiler) {prof['named']}, not 4 each")
+            t1 = time.perf_counter()
+            for b in batches:
+                bp.process(b)
+            rates[label] = len(batches) * BATCH / (time.perf_counter() - t1)
+        finally:
+            bp.close()
+        require(results[label] == results["one device"], f"BatchPipeline {label} != one device")
+    secs["batch pipeline"] = time.perf_counter() - t0
+    print(f"mesh: BatchPipeline(batch={BATCH}) at {w}x{h} over {len(batches)} batches of the drag on {dev}: results of "
+          f"dp=4 == one device; kernels 1-3 per batch (profiler) {prof['named']}; process() frames/s "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
+          + f" (one card: the cost of the split, not scaling) on {card}; seconds "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
+    print("mesh: " + json.dumps({"ray_march_masks_us": table, "batch_fps": rates, "card": card}), flush=True)
+    return launches
+
+
 WARMUP_CHILD = r"""
 import json, sys, time
 import torch
@@ -1831,6 +2013,8 @@ def main() -> int:
     phase_loop(dev)
     main_paths += [phase_live(dev, card), phase_live_window(dev, card), phase_app(dev)]
     main_paths.append(timed_phase("batch", phase_batch, dev, card))
+    single_b8 = {h: us for h, us in kernels["ray_march"].pop("device_us_by_height").items()}
+    main_paths.append(timed_phase("mesh", phase_mesh, dev, card, single_b8))
     timed_phase("warmup", phase_warmup, dev)
     timed_phase("worker", phase_worker, dev)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "smh_tpu"))

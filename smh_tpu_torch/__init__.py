@@ -28,7 +28,8 @@ __version__ = "0.1.0"
 
 def resolve_device(device) -> torch.device:
     """torch.device for `device` ("cuda", "cuda:N" or "cpu"); raises when a
-    CUDA device is asked for and none is available."""
+    CUDA device is asked for and none is available, or "cuda:N" names a
+    card that is not there."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -36,6 +37,8 @@ def resolve_device(device) -> torch.device:
                 f"device {device!r}: no CUDA device is available "
                 "(pass device='cpu' to run the plain PyTorch path)"
             )
+        if dev.index is not None and dev.index >= torch.cuda.device_count():
+            raise RuntimeError(f"device {device!r}: {torch.cuda.device_count()} CUDA device(s) are visible")
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev

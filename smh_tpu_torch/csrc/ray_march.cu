@@ -211,8 +211,9 @@ __device__ __forceinline__ unsigned long long max_key(unsigned long long a, unsi
   return a > b ? a : b;
 }
 
+template <bool BATCH>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
-ray_march_kernel(const uint8_t* __restrict__ mask, int H, int W, const float* __restrict__ pts,
+ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, int W, const float* __restrict__ pts,
                  const float* __restrict__ cosv, const float* __restrict__ sinv, int N, int max_gap,
                  int k_total, float* __restrict__ end_x, float* __restrict__ end_y,
                  float* __restrict__ best_x, float* __restrict__ best_y, float* __restrict__ best_len) {
@@ -225,6 +226,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int H, int W, const float* __
 
   cg::cluster_group cluster = cg::this_cluster();
   const int b = blockIdx.y;
+  if constexpr (BATCH) mask += b * mask_stride;  // this seed's mask
   const int per = (N + CLUSTER - 1) / CLUSTER;
   const int a0 = blockIdx.x * per;
   const int a1 = min(N, a0 + per);
@@ -371,22 +373,42 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int H, int W, const float* __
   }
 }
 
+// One launch on `stream`: B clusters of CLUSTER blocks.
+template <bool BATCH>
+int launch(const void* mask, int64_t mask_stride, int H, int W, const void* pts, int B, const void* cosv,
+           const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y, void* best_x, void* best_y,
+           void* best_len, void* stream) {
+  if (B <= 0 || N <= 0) return (int)cudaSuccess;
+  const int per = (N + CLUSTER - 1) / CLUSTER;
+  if (per > MAX_PER_BLOCK || max_gap < 0 || k_total < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int rounded = (per + 31) / 32 * 32;
+  const int threads = rounded < MAX_THREADS ? rounded : MAX_THREADS;
+  ray_march_kernel<BATCH><<<dim3(CLUSTER, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(mask), mask_stride, H, W, static_cast<const float*>(pts),
+      static_cast<const float*>(cosv), static_cast<const float*>(sinv), N, max_gap, k_total,
+      static_cast<float*>(end_x), static_cast<float*>(end_y), static_cast<float*>(best_x),
+      static_cast<float*>(best_y), static_cast<float*>(best_len));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // mask: u8 [H, W]; pts: f32 [B, 2] (x, y); cosv, sinv: f32 [N]; end_x,
-// end_y: f32 [B, N]; best_x, best_y, best_len: f32 [B]. One launch on
-// `stream`: B clusters of CLUSTER blocks.
+// end_y: f32 [B, N]; best_x, best_y, best_len: f32 [B]. Every seed marches
+// the one mask.
 extern "C" int smh_ray_march(const void* mask, int H, int W, const void* pts, int B, const void* cosv,
                              const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y,
                              void* best_x, void* best_y, void* best_len, void* stream) {
-  if (B <= 0 || N <= 0) return (int)cudaSuccess;
-  const int per = (N + CLUSTER - 1) / CLUSTER;
-  if (per > MAX_PER_BLOCK || max_gap < 0 || k_total < 0) return (int)cudaErrorInvalidValue;
-  const int rounded = (per + 31) / 32 * 32;
-  const int threads = rounded < MAX_THREADS ? rounded : MAX_THREADS;
-  ray_march_kernel<<<dim3(CLUSTER, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(mask), H, W, static_cast<const float*>(pts), static_cast<const float*>(cosv),
-      static_cast<const float*>(sinv), N, max_gap, k_total, static_cast<float*>(end_x), static_cast<float*>(end_y),
-      static_cast<float*>(best_x), static_cast<float*>(best_y), static_cast<float*>(best_len));
-  return (int)cudaGetLastError();
+  return launch<false>(mask, 0, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x, best_y,
+                       best_len, stream);
+}
+
+// smh_ray_march over B masks, one per seed: seed b's u8 [H, W] mask starts
+// at mask + b * mask_stride (bytes, >= H * W).
+extern "C" int smh_ray_march_masks(const void* mask, int64_t mask_stride, int H, int W, const void* pts, int B,
+                                   const void* cosv, const void* sinv, int N, int max_gap, int k_total, void* end_x,
+                                   void* end_y, void* best_x, void* best_y, void* best_len, void* stream) {
+  if (mask_stride < (int64_t)H * W) return (int)cudaErrorInvalidValue;
+  return launch<true>(mask, mask_stride, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x,
+                      best_y, best_len, stream);
 }

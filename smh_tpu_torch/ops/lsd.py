@@ -1,9 +1,11 @@
 """Device longest-line search: the ray march of the `lsd_engine="cuda"` path.
 
-Port of smh_tpu/ops/lsd.py (all of it but `_march`, the multi-chip path).
-For every seed, 3600 rays (one per 0.1 degree) march over the u8 LSD mask
-until they leave the plane or cross a gap of more than max_gap non-white
-samples; each seed keeps the last angle with the largest squared length.
+Port of smh_tpu/ops/lsd.py, with `_march`, the fixed-depth march of the
+multi-device path, as `ray_march` over a batch of masks (one per seed) with
+k_total = `_max_k` (parallel/spmd.py::march_batch). For every seed, 3600
+rays (one per 0.1 degree) march over the u8 LSD mask until they leave the
+plane or cross a gap of more than max_gap non-white samples; each seed
+keeps the last angle with the largest squared length.
 
 * `march_plain` / `finalize_plain` are the plain PyTorch version: the span
   formulation of smh_tpu's `_march_span` / `_finalize` (positions along a
@@ -14,7 +16,8 @@ samples; each seed keeps the last angle with the largest squared length.
   hand-written kernel csrc/ray_march.cu for a mask on a CUDA device (one
   launch: the sequential state machine taken 32 steps a word, a thread a
   lane and then a warp a surviving ray, and each seed's winner by a u64 key
-  max across a cluster of blocks). Both sample pos(k) = start + k * d with
+  max across a cluster of blocks; a batch of masks is the same launch with
+  a mask stride). Both sample pos(k) = start + k * d with
   two roundings (no FMA), so their ends and lengths are bit-equal.
 
 Both read one theta table, built once on the host in f32 (`theta_tables`),
@@ -93,14 +96,21 @@ def step_bound(h: int, w: int, max_gap: int, max_len: float | None = None) -> in
 
 
 def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
-    """Plain twin of the lane kernel: u8 mask [h, w], f32 seeds [B, 2] ->
-    (end_x, end_y) f32 [B, N]. Seeds lie inside the plane."""
-    h, w = mask.shape
+    """Plain twin of the lane kernel: u8 mask [h, w] (every seed's) or
+    [B, h, w] (seed b's mask b), f32 seeds [B, 2] -> (end_x, end_y) f32
+    [B, N]. Seeds lie inside the plane."""
+    h, w = mask.shape[-2:]
     bsz = pts.shape[0]
     n = cos_t.numel()
     dev = mask.device
     window = max_gap + 1
     flat = mask.reshape(-1)
+    # Seed b's mask starts at b * h * w of the flat index (a batch of masks):
+    # the offset of each [B, N] lane and each [B, N, chunk] sample.
+    base2 = base3 = 0
+    if mask.dim() == 3:
+        base2 = (torch.arange(bsz, dtype=I64, device=dev) * (h * w))[:, None]
+        base3 = base2[:, :, None]
     x0 = pts[:, 0:1]  # [B, 1]
     y0 = pts[:, 1:2]
     dx = cos_t[None, :]  # [1, N]
@@ -119,7 +129,7 @@ def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
         inb = (px >= 0) & (py >= 0) & (px < w) & (py < h)
         xi = px.to(I32).clamp(0, w - 1)
         yi = py.to(I32).clamp(0, h - 1)
-        white = (flat[(yi.to(I64) * w + xi)] == 255) & inb
+        white = (flat[base3 + yi.to(I64) * w + xi] == 255) & inb
         black = ~white
 
         # The first step whose trailing max_gap + 1 samples are all black
@@ -141,7 +151,7 @@ def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
         cxi = fx.clamp(min=0).to(I32)
         cyi = fy.clamp(min=0).to(I32)
         final_inb = (cxi < w) & (cyi < h)
-        fpix = flat[cyi.clamp(0, h - 1).to(I64) * w + cxi.clamp(0, w - 1)]
+        fpix = flat[base2 + cyi.clamp(0, h - 1).to(I64) * w + cxi.clamp(0, w - 1)]
         final_black = final_inb & (fpix == 0)
         oob_x = torch.where(final_black, fx - dx, x0)
         oob_y = torch.where(final_black, fy - dy, y0)
@@ -181,17 +191,20 @@ def finalize_plain(pts, end_x, end_y):
 
 
 def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
-    """u8 mask [h, w], f32 seeds [B, 2] (x, y) inside the plane, theta table
-    f32 [N] x2 -> (end_x, end_y f32 [B, N], best_x, best_y, best_len f32
-    [B]). The plain version on the CPU; on a CUDA device the kernel."""
+    """u8 mask [h, w] (every seed's) or [B, h, w] (seed b's mask b), f32
+    seeds [B, 2] (x, y) inside the plane, theta table f32 [N] x2 ->
+    (end_x, end_y f32 [B, N], best_x, best_y, best_len f32 [B]). The plain
+    version on the CPU; on a CUDA device the kernel, one launch either way."""
     tensors = (mask, pts, cos_t, sin_t)
     dev = mask.device
     if any(t.device != dev for t in tensors):
         raise ValueError("mask, seeds and theta table must share a device")
-    if mask.dtype != torch.uint8 or mask.dim() != 2:
-        raise ValueError(f"expected a u8 [h, w] mask, got {mask.dtype} {tuple(mask.shape)}")
+    if mask.dtype != torch.uint8 or mask.dim() not in (2, 3):
+        raise ValueError(f"expected a u8 [h, w] or [B, h, w] mask, got {mask.dtype} {tuple(mask.shape)}")
     if pts.dtype != F32 or pts.dim() != 2 or pts.shape[1] != 2:
         raise ValueError(f"expected f32 [B, 2] seeds, got {pts.dtype} {tuple(pts.shape)}")
+    if mask.dim() == 3 and mask.shape[0] != pts.shape[0]:
+        raise ValueError(f"{mask.shape[0]} masks for {pts.shape[0]} seeds")
     if cos_t.dtype != F32 or sin_t.dtype != F32 or cos_t.shape != sin_t.shape or cos_t.dim() != 1:
         raise ValueError("expected f32 [N] cos and sin tables")
     if max_gap < 0 or k_total < 0:
@@ -202,20 +215,21 @@ def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     mask, pts, cos_t, sin_t = (t.contiguous() for t in tensors)
-    h, w = mask.shape
+    h, w = mask.shape[-2:]
     bsz, n = pts.shape[0], cos_t.numel()
     end_x = torch.empty((bsz, n), dtype=F32, device=dev)
     end_y = torch.empty_like(end_x)
     best = torch.empty((3, bsz), dtype=F32, device=dev)
     lib = _build.load()
+    args = (h, w, pts.data_ptr(), bsz, cos_t.data_ptr(), sin_t.data_ptr(), n, max_gap, k_total,
+            end_x.data_ptr(), end_y.data_ptr(), best[0].data_ptr(), best[1].data_ptr(), best[2].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        code = lib.smh_ray_march(
-            mask.data_ptr(), h, w, pts.data_ptr(), bsz, cos_t.data_ptr(), sin_t.data_ptr(), n,
-            max_gap, k_total, end_x.data_ptr(), end_y.data_ptr(),
-            best[0].data_ptr(), best[1].data_ptr(), best[2].data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(code, "smh_ray_march")
+        if mask.dim() == 3:
+            name, code = "smh_ray_march_masks", lib.smh_ray_march_masks(mask.data_ptr(), h * w, *args)
+        else:
+            name, code = "smh_ray_march", lib.smh_ray_march(mask.data_ptr(), *args)
+    _build.check(code, name)
     kernels.LAUNCHES["ray_march"] += 1
     return end_x, end_y, best[0], best[1], best[2]
 

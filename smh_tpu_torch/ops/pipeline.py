@@ -164,16 +164,23 @@ def _weighted_check(plane: torch.Tensor) -> torch.Tensor:
     return torch.stack([p.sum(dim=(-2, -1)), weighted], dim=-1) & U32_MASK
 
 
+def _dense(t: torch.Tensor) -> torch.Tensor:
+    """t in row-major strides: contiguous() keeps a size-1 dimension's odd
+    stride (a [1, 1] slice of a batch of one), which a dtype view refuses."""
+    t = t.contiguous()
+    return t if t.dim() == 0 or t.stride(-1) == 1 else t.clone(memory_format=torch.contiguous_format)
+
+
 def _bytes(t: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
     """Little-endian byte view of a tensor (the JAX bitcast_convert_type),
     flat per frame of the leading batch shape `lead`."""
-    return t.contiguous().view(torch.uint8).reshape(*lead, -1)
+    return _dense(t).view(torch.uint8).reshape(*lead, -1)
 
 
 def _u32_bytes(v: torch.Tensor, lead: tuple = ()) -> torch.Tensor:
     """Bytes of int64 values < 2^32 as little-endian u32 (the low 4 bytes),
     flat per frame of the leading batch shape `lead`."""
-    return v.contiguous().view(torch.uint8).reshape(*lead, -1, 8)[..., :4].reshape(*lead, -1)
+    return _dense(v).view(torch.uint8).reshape(*lead, -1, 8)[..., :4].reshape(*lead, -1)
 
 
 def _window_at(plane: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor, hh: int, ww: int) -> torch.Tensor:
@@ -288,11 +295,15 @@ def _minimap_walks(left_q, right_q, up_q, down_q, h: int, w: int) -> torch.Tenso
 # -- OCR preprocess + red gate --------------------------------------------------
 
 
-def _ocr_preprocess_planes(r8, g8, b8, luma=None) -> torch.Tensor:
+def _ocr_preprocess_planes(r8, g8, b8, luma=None, row0: int = 0, total_h: int | None = None) -> torch.Tensor:
     """Whiteish-text isolation of u8 planes [..., h, w] (oracle:
     pixmath.ocr_preprocess). `luma` may pass the planes' Rec.709 luma when
-    it is already computed."""
+    it is already computed. The planes may be rows row0 .. row0 + h of a
+    quadrant total_h rows high (a row-sharded block; default: the whole
+    quadrant): the reference's last-rows clip is taken in the quadrant's
+    rows."""
     h, w = r8.shape[-2:]
+    total_h = h if total_h is None else total_h
     r = r8.to(torch.int16)
     g = g8.to(torch.int16)
     b = b8.to(torch.int16)
@@ -310,7 +321,7 @@ def _ocr_preprocess_planes(r8, g8, b8, luma=None) -> torch.Tensor:
     # The reference never examines neighbours in the last R-1 columns/rows.
     clipped = strict.clone()
     clipped[..., :, max(w - R + 1, 0) :] = False
-    clipped[..., max(h - R + 1, 0) :, :] = False
+    clipped[..., max(total_h - R + 1 - row0, 0) :, :] = False
     near_strict = _box_dilate_bool(clipped, R)
 
     keep = strict | (edge_cand & near_strict)
@@ -638,6 +649,42 @@ def analyze_map_planar(planes: torch.Tensor, grayscale: bool = True, with_isolat
     return _analyze_map_planes(
         planes[0], planes[1], planes[2], grayscale, with_quiet=False, with_isolated=with_isolated,
     )
+
+
+def analyze_map(map_bgra: torch.Tensor, grayscale: bool = True, with_isolated: bool = False) -> dict:
+    """The fused pass over an INTERLEAVED map ROI, u8 [h, w, 4] BGRA or
+    [h, w, 3] BGR on its device (the alpha byte is never read): the
+    outputs of smh_tpu's `_analyze_map` with its defaults (the XLA quiet
+    mask, no Pallas) -- `_analyze_map_planes`' plus "quiet_bool" and
+    "lsd_mask" (u8 0/255, the march's input). The ROI is split into
+    contiguous planes first: the kernels read contiguous planes. Not a
+    transport (the production path uploads planes): the whole-frame entry
+    of the multi-device path and its checks. The JAX counterpart is
+    smh_tpu.ops.pipeline.analyze_map."""
+    b8, g8, r8 = (map_bgra[..., c].contiguous() for c in range(3))
+    out = _analyze_map_planes(b8, g8, r8, grayscale, with_quiet=False, with_isolated=with_isolated)
+    out["lsd_mask"] = mask_u8(out["lsd_bool"])
+    out["quiet_bool"] = _edgy_quiet_planes(b8, g8, r8)
+    return out
+
+
+def analyze_frame(frame, grayscale: bool = True, with_isolated: bool = False, device="cuda") -> dict:
+    """analyze_map over the map ROI of a whole BGRA u8 [H, W, 4] frame: a
+    tensor runs on its own device, a numpy array is uploaded to `device`
+    first. The JAX counterpart is smh_tpu.ops.pipeline.analyze_frame."""
+    if not isinstance(frame, torch.Tensor):
+        from .. import resolve_device
+
+        frame = torch.from_numpy(frame).to(resolve_device(device))
+    h, w = frame.shape[:2]
+    g = C.map_geometry(w, h)
+    roi = frame[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w]
+    return analyze_map(roi, grayscale=grayscale, with_isolated=with_isolated)
+
+
+def mask_u8(lsd_bool: torch.Tensor) -> torch.Tensor:
+    """The u8 0/255 LSD mask of a bool mask."""
+    return lsd_bool.to(torch.uint8) * 255
 
 
 def unpack_bits_device(packed: torch.Tensor, w: int) -> torch.Tensor:

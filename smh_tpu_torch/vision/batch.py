@@ -20,10 +20,17 @@ kernels 1-3 each launch once for all B frames, and one async D2H copy of the
 [B, bytes] hostpacks into pinned memory behind a CUDA event that collect()
 waits on.
 
-Left out against smh_tpu: `mesh=` (multi-device; passing it raises), and the
-host link's relay-specific parts (the 1-byte chain-tail poke and its eager
-variant): the gate that bounds outstanding delta programs waits on the last
-submit's CUDA event instead.
+On a mesh (parallel/spmd.py::Mesh, `mesh=`) the batch splits over "dp":
+each dp slice of the rows is staged in pinned memory and copied to its
+row's sp-0 device, the batched pass runs once per dp device (kernels 1-3
+once per dp shard), and each device's hostpacks are copied into their rows
+of the one pinned [B, bytes] buffer behind that device's event; collect()
+waits on all of them. As in smh_tpu, the cross-batch delta chain is off on
+a mesh: every batch is a full upload.
+
+Left out against smh_tpu: the host link's relay-specific parts (the 1-byte
+chain-tail poke and its eager variant): the gate that bounds outstanding
+delta programs waits on the last submit's CUDA event instead.
 """
 
 from __future__ import annotations
@@ -58,7 +65,7 @@ class BatchResult:
 
 
 class BatchPipeline:
-    """Fixed-resolution batched analyzer on one device."""
+    """Fixed-resolution batched analyzer on one device or over a mesh."""
 
     def __init__(
         self,
@@ -77,11 +84,22 @@ class BatchPipeline:
         replaces the per-frame driver's adaptive ladder).
 
         device: "cuda" / "cuda:N" runs the CUDA kernels, "cpu" their plain
-        PyTorch versions; a CUDA device that is absent raises. mesh (the
-        multi-device mode of smh_tpu) is not ported yet and raises."""
+        PyTorch versions; a CUDA device that is absent raises.
+
+        mesh: a parallel/spmd.py Mesh, the multi-device mode (then `device`
+        is not read): batch % dp == 0, frames b * B / dp .. (b + 1) * B / dp
+        run on dp row b's sp-0 device, the delta chain is off. smh_tpu
+        replicates a dp slice over "sp"; the port runs it once, on the sp-0
+        device: the results are the same."""
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("multi-device is not ported yet")
-        self.device = resolve_device(device)
+            dp = mesh.shape["dp"]
+            if batch % dp:
+                raise ValueError(f"batch={batch} is not divisible by dp={dp}")
+            self.devices = mesh.row_devices()
+        else:
+            self.devices = [resolve_device(device)]
+        self.device = self.devices[0]
         self.geom = C.map_geometry(frame_w, frame_h)
         self.batch = batch
         self.ocr_engine = ocr_engine
@@ -112,7 +130,7 @@ class BatchPipeline:
         self._pool = ThreadPoolExecutor(max_workers=max(1, host_workers), thread_name_prefix="batch-host")
         self._ocr_lock = threading.Lock()
         self._scales_cache: dict = {}
-        self._templates: Optional[torch.Tensor] = None  # the device scales read's, made at first use
+        self._templates: dict = {}  # device -> the device scales read's templates, made at first use
         # Cross-batch delta chain (the per-frame backend's transport scaled
         # to video: frame i diffs against frame i-1, batch 0's head against
         # the previous batch's tail kept device-resident).
@@ -351,16 +369,16 @@ class BatchPipeline:
                 datas[i, ch.size :] = src[ch[-1]]
         return buf, bucket
 
-    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+    def _to_device(self, host: np.ndarray, device: torch.device) -> torch.Tensor:
         """One H2D copy of a host buffer: staged through pinned memory and
         copied without blocking on a CUDA device (the caching host allocator
         hands a pinned block out again only after its copy finished); the
         CPU path wraps the buffer."""
-        if self.device.type != "cuda":
+        if device.type != "cuda":
             return torch.from_numpy(host)
         stage = torch.empty(host.shape, dtype=torch.uint8, pin_memory=True)
         stage.numpy()[...] = host
-        return stage.to(self.device, non_blocking=True)
+        return stage.to(device, non_blocking=True)
 
     def process(self, frames: list[np.ndarray]) -> list[BatchResult]:
         """frames: BGRA u8 arrays of the pipeline resolution, len <= batch."""
@@ -462,6 +480,7 @@ class BatchPipeline:
             and self._resident is not None
             and self._mirror is not None
             and self._mirror.size == padded
+            and self.mesh is None
         )
         try:
             return self._submit(frames, n, delta_ok)
@@ -490,10 +509,12 @@ class BatchPipeline:
 
         inline = self._scales_inline()
         with_ocr = self.ocr_engine is not None
-        if inline == "device" and self._templates is None:
-            self._templates = ops_scales_device.templates_to_device(
-                ops_scales_device.device_templates(), self.device
-            )
+        if inline == "device":
+            for dev in self.devices:
+                if dev not in self._templates:
+                    self._templates[dev] = ops_scales_device.templates_to_device(
+                        ops_scales_device.device_templates(), dev
+                    )
         kw = dict(
             map_h=g.map_h,
             map_w=g.map_w,
@@ -505,7 +526,6 @@ class BatchPipeline:
             crop_w=self.crop_w,
             scales_inline=inline,
             sparse_budget=self.sparse_budget,
-            templates=self._templates if inline == "device" else None,
         )
         if not rolled:
             upd = self._delta_updates(rois, n) if delta_ok else None
@@ -521,55 +541,87 @@ class BatchPipeline:
             t3 = time.perf_counter()
             self.stats["t_poke_ms"] += (t3 - t2) * 1000.0
             out = ops_pipeline.analyze_batch_delta_flat(
-                self._resident, self._to_device(buf), bucket=bucket, chunk=cb._DELTA_SUB, **kw
+                self._resident, self._to_device(buf, self.device), bucket=bucket, chunk=cb._DELTA_SUB,
+                templates=self._templates.get(self.device), **kw
             )
+            shards = [out]
             self.stats["t_dispatch_ms"] += (time.perf_counter() - t3) * 1000.0
             self.stats["delta_batches"] += 1
             self.stats["h2d_bytes"] += buf.size
             if rois is not None:
                 self._rois_buf = rois  # never left the host: recycle next batch
         else:
+            # A full upload: one batched pass per dp device over its slice of
+            # the rows (the one device's whole batch without a mesh).
             t3 = time.perf_counter()
-            out = ops_pipeline.analyze_batch_packed_flat(self._to_device(rois), resident_row=n - 1, **kw)
+            per = self.batch // len(self.devices)
+            shards = [
+                ops_pipeline.analyze_batch_packed_flat(
+                    self._to_device(rois[k * per : (k + 1) * per], dev),
+                    resident_row=n - 1 if self.mesh is None else None,
+                    templates=self._templates.get(dev), **kw,
+                )
+                for k, dev in enumerate(self.devices)
+            ]
             self.stats["t_dispatch_ms"] += (time.perf_counter() - t3) * 1000.0
             self.stats["full_batches"] += 1
             self.stats["h2d_bytes"] += rois.size
-        self._resident = out.pop("resident")
-        # Start the batch hostpack's D2H now, into pinned memory behind an
-        # event: it lands while the next batch packs and diffs, and
-        # collect() waits on this batch's event only.
-        pack = out["hostpack"]
-        if self.device.type == "cuda":
-            host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
-            host.copy_(pack, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-            self._tail_event = event
-            fetch = (host, event)
-        else:
-            fetch = (pack, None)
+        if self.mesh is None:
+            self._resident = shards[0].pop("resident")
+        fetch = self._fetch(shards)
         # Copy: a row view would keep the whole packed batch alive in host
         # RAM until the next submit replaces it. The rolled path's mirror
         # IS the chain tail already (rolled in place).
-        if not rolled:
+        if not rolled and self.mesh is None:
             self._mirror = rois[n - 1].copy()
         self._seq += 1
         return {
-            "out": out, "fetch": fetch, "n": n, "inline": inline, "with_ocr": with_ocr,
+            "shards": shards, "fetch": fetch, "n": n, "inline": inline, "with_ocr": with_ocr,
             "seq": self._seq,
         }
+
+    def _fetch(self, shards: list) -> tuple:
+        """Start the batch hostpacks' D2H now, each shard's rows into theirs
+        of one pinned [B, bytes] buffer behind an event on its device: they
+        land while the next batch packs and diffs, and collect() waits on
+        this batch's events only. -> (host [B, bytes], events)."""
+        packs = [o["hostpack"] for o in shards]
+        if self.device.type != "cuda":
+            return (packs[0] if len(packs) == 1 else torch.cat(packs)), []
+        host = torch.empty((self.batch, packs[0].shape[1]), dtype=torch.uint8, pin_memory=True)
+        per = self.batch // len(shards)
+        events = []
+        for k, (dev, pack) in enumerate(zip(self.devices, packs)):
+            host[k * per : (k + 1) * per].copy_(pack, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+        self._tail_event = events[-1]
+        return host, events
+
+    def _frame_out(self, job: dict, name: str, frames: list) -> np.ndarray:
+        """Output `name` of the given frames, fetched from the devices that
+        hold them (one fetch per device), in the order asked."""
+        shards = job["shards"]
+        per = self.batch // len(shards)
+        got = {}
+        for k, out in enumerate(shards):
+            mine = [i for i in frames if i // per == k]
+            if mine:
+                rows = out[name][[i - k * per for i in mine]].cpu().numpy()
+                got.update(zip(mine, rows))
+        return np.stack([got[i] for i in frames])
 
     def collect(self, job: dict) -> list[BatchResult]:
         """Fetch + host stages for a submitted batch (blocks on its event)."""
         g = self.geom
-        out = job["out"]
         n = job["n"]
         inline = job["inline"]
         with_ocr = job["with_ocr"]
         t0 = time.perf_counter()
-        host, event = job["fetch"]
-        if event is not None:
-            event.synchronize()  # this batch's copy only, not the stream
+        host, events = job["fetch"]
+        for event in events:
+            event.synchronize()  # this batch's copies only, not the streams
         packs = host.numpy()  # ONE fetch for the whole batch
         t1 = time.perf_counter()
         self.stats["t_fetch_ms"] += (t1 - t0) * 1000.0
@@ -616,12 +668,11 @@ class BatchPipeline:
                 check = tuple(int(v) for v in sect(i, "scales_check").view(np.uint32))
             meta[i] = (empty, fit, (y0, y1, x0, x1), (cx0, cy0), check)
 
-        # Window or sparse misses: ONE batched fetch of their full bit planes.
+        # Window or sparse misses: ONE batched fetch of their full bit planes
+        # from each device that holds one.
         full_bits = {}
         if misses:
-            fetched = out["lsd_bits"][misses].cpu().numpy()
-            for k, i in enumerate(misses):
-                full_bits[i] = fetched[k]
+            full_bits = dict(zip(misses, self._frame_out(job, "lsd_bits", misses)))
 
         def host_stage(i: int) -> BatchResult:
             empty, fit, bbox, (cx0, cy0), check = meta[i]
@@ -665,7 +716,7 @@ class BatchPipeline:
                             # Capacity overflow with nothing trusted: the
                             # host engine over THIS frame's scalespack (one
                             # lazy per-frame fetch; rare).
-                            spack = out["scalespack"][i].cpu().numpy()
+                            spack = self._frame_out(job, "scalespack", [i])[0]
                             slay = ops_pipeline.scalespack_layout(g.map_h, g.map_w)
                             so, ss = slay["scales_bits"]
                             oo, os_ = slay["ocr_img"]

@@ -241,13 +241,13 @@ def test_failed_batch_dispatch_drops_the_delta_chain(monkeypatch):
         bp.process(batches[0])
         with pytest.raises(RuntimeError, match="injected"):
             bp.submit(batches[1])
-        packs = bp.submit(batches[2])["out"]["hostpack"].numpy()
+        packs = bp.submit(batches[2])["shards"][0]["hostpack"].numpy()
         stats = dict(bp.stats)
     finally:
         bp.close()
     fresh = tbatch.BatchPipeline(W, H, batch=BSZ, device="cpu")
     try:
-        want = fresh.submit(batches[2])["out"]["hostpack"].numpy()
+        want = fresh.submit(batches[2])["shards"][0]["hostpack"].numpy()
     finally:
         fresh.close()
     np.testing.assert_array_equal(packs, want)
@@ -255,8 +255,10 @@ def test_failed_batch_dispatch_drops_the_delta_chain(monkeypatch):
 
 
 def test_mesh_and_an_absent_card_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tbatch.BatchPipeline(W, H, mesh=object(), device="cpu")
+    from smh_tpu_torch.parallel import spmd
+
+    with pytest.raises(ValueError, match="not divisible by dp=2"):
+        tbatch.BatchPipeline(W, H, batch=BSZ, mesh=spmd.make_mesh(["cpu"] * 2))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tbatch.BatchPipeline(W, H, device="cuda")

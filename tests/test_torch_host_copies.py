@@ -115,7 +115,7 @@ PORT_ONLY = {
     "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
-    "vision/cuda_backend.py",
+    "vision/cuda_backend.py", "parallel/__init__.py", "parallel/dryrun.py", "parallel/spmd.py",
 }
 
 
