@@ -101,7 +101,22 @@ each printing a line, each failing loudly:
  14. worker  — WorkerClient at 1080p on the card: the ready event, a child
                that imports neither jax nor smh_tpu, a recycle and the
                recovery, results equal to the in-process state's; then the
-               CLI's App with --worker delivers an update.
+               CLI's App with --worker delivers an update;
+ 15. resolutions — (run after the batch kernels) one VisionState on the card
+               resizing mid-stream through 1024x768, 1280x1024, 1600x900,
+               1366x768, 2560x1440, 3440x1440 and 1920x1080: markers, ratio
+               and minimap equal to the oracle's, hostpack bytes equal to a
+               CPU state's, lsd_engine="cuda" against the oracle at 1024x768
+               and 3440x1440; kernels 1-3 at each map shape bit-equal to
+               their plain versions per frame and at B=3, their device us
+               beside their bound;
+ 16. tools   — (run after the mesh) the operator entry points of
+               smh_tpu_torch/tools/: analyze_video's frame function over the
+               video goldens (24 frames 5 times at B=8, frames/s after the
+               first batch) and over a
+               1600x900 drag (== the per-frame state), compare_backends on
+               the verify frame's PNG (RESULT: PASS), render_detections'
+               cuda PNG == its numpy PNG.
 
 The last lines are a JSON object with the per-kernel results, the card's
 name and power limit, and {"ok": true, "device": {...}}. Any failed check
@@ -114,6 +129,7 @@ from __future__ import annotations
 import functools
 import json
 import logging
+import math
 import os
 import statistics
 import subprocess
@@ -225,8 +241,9 @@ def device_profile(fn, n: int = 20, names=(), tries: int = 4) -> dict:
     """torch.profiler over n calls of fn(), after one warm call. Per call:
     `us`, the device time of the rows that ran on the card; `launches`,
     those rows (kernels, memsets, copies); `kernels` and `kernel_us`, the
-    kernels among them and their time; `named`, {name: launches of the
-    kernels whose name holds `name`_kernel}. A trace loses the records
+    kernels among them and their time; `named` and `named_us`, {name:
+    launches and device time of the kernels whose name holds
+    `name`_kernel}. A trace loses the records
     that come first (on an H100: 2 as a rule; after traces of thousands of
     launches, up to all of them), so the calls sit between two runs of
     SPINS spin kernels (torch.cuda._sleep), left out of every count. A
@@ -263,6 +280,8 @@ def device_profile(fn, n: int = 20, names=(), tries: int = 4) -> dict:
         "kernels": sum(e.count for e in kernels) / n,
         "kernel_us": sum(e.self_device_time_total for e in kernels) / n,
         "named": {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) / n for name in names},
+        "named_us": {name: sum(e.self_device_time_total for e in kernels if f"{name}_kernel" in e.key) / n
+                     for name in names},
     }
 
 
@@ -1822,6 +1841,209 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
     return launches
 
 
+CUDA_ENGINE_SIZES = ((1024, 768), (3440, 1440))  # lsd_engine="cuda" held to the oracle there too
+
+
+def ends_close(got, want) -> bool:
+    """Equal counts of marker lines (x0, y0, x1, y1) whose ends each lie
+    within 1.5 px of the other's (tests/test_video_goldens.py's rule)."""
+    return len(got) == len(want) and all(
+        math.hypot(g[0] - e[0], g[1] - e[1]) <= 1.5 and math.hypot(g[2] - e[2], g[3] - e[3]) <= 1.5
+        for g, e in zip(got, want)
+    )
+
+
+def phase_resolutions(dev: torch.device, card: str) -> dict:
+    """One VisionState on the card resizing mid-stream through
+    testing.RESOLUTIONS.
+    At each size: markers, ratio and minimap == the oracle's (ends within
+    1.5 px), hostpack and scalespack bytes == a CPU state's, kernels 1-3
+    launched by the pass; lsd_engine="cuda" == the oracle at
+    CUDA_ENGINE_SIZES; at each map shape kernels 1-3 bit-equal to their
+    plain versions per frame (the frame's map ROI) and at B=3 (random rows),
+    their device us per frame beside their bound."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+    from smh_tpu_torch.squadex.capture import Frame
+
+    rng = np.random.default_rng(9)
+    launches = {name: 0 for name in K.LAUNCHES}
+    table = {}
+    card_state, cpu_state, oracle = new_state(dev), new_state("cpu"), new_state("cpu", hardware=False)
+    try:
+        for w, h in testing.RESOLUTIONS:
+            frame = testing.resolution_frame(w, h)
+            gm = C.map_geometry(w, h)
+            shape = f"{gm.map_h}x{gm.map_w}"
+            label = f"{w}x{h} (map {shape})"
+            res = _count(launches, lambda: card_state.process(Frame(frame, 96)))
+            require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"{label}: the pass skipped a kernel: {K.LAUNCHES}")
+            be = card_state.delegate.backend
+            pack_gpu = be._results["hostpack"].cpu().numpy()
+            spack_gpu = be._results["scalespack"].cpu().numpy()
+            layout = opp.hostpack_layout(
+                gm.map_h, gm.map_w, with_ocr=True, with_quiet=True,
+                scales_inline=be._dispatch_flags[3], sparse_budget=be._dispatch_flags[4],
+            )
+            ref = oracle.process(Frame(frame, 96))
+            cpu_state.process(Frame(frame, 96))
+            pack_cpu = cpu_state.delegate.backend._results["hostpack"].numpy()
+            spack_cpu = cpu_state.delegate.backend._results["scalespack"].numpy()
+            require(res is not None and ref is not None, f"{label}: map gate closed")
+            got, want = summarize(res), summarize(ref)
+            require(len(got[0]) == 1 and ends_close(got[0], want[0]), f"{label}: markers {got[0]} vs oracle {want[0]}")
+            require(got[1] is not None and got[1] == want[1], f"{label}: ratio {got[1]} vs oracle {want[1]}")
+            require(got[2] == want[2], f"{label}: minimap {got[2]} vs oracle {want[2]}")
+            require(hostpacks_match(pack_gpu, pack_cpu, layout), f"{label}: hostpack bytes differ from the CPU path")
+            require(np.array_equal(spack_gpu, spack_cpu), f"{label}: scalespack bytes differ from the CPU path")
+            engine = ""
+            if (w, h) in CUDA_ENGINE_SIZES:
+                be.lsd_engine = "cuda"
+                try:
+                    res_c = _count(launches, lambda: card_state.process(Frame(frame, 96)))
+                finally:
+                    be.lsd_engine = "native"
+                require(K.LAUNCHES["ray_march"] > 0, f"{label}: the cuda engine did not march: {K.LAUNCHES}")
+                got_c = summarize(res_c)
+                require(len(got_c[0]) == 1 and ends_close(got_c[0], want[0]),
+                        f"{label}: lsd_engine=cuda markers {got_c[0]} vs oracle {want[0]}")
+                engine = f"; lsd_engine=cuda markers {got_c[0]} == oracle within 1.5 px"
+
+            # Kernels 1-3 at this map shape: per frame on the frame's map ROI
+            # (B, G, R planes as the pass lays them out), then a batch of 3.
+            roi = frame[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w, :3]
+            planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(roi, -1, 0))[None]).to(dev)
+            calls = batch_calls(planes)
+            for name, c in calls.items():
+                check_batched(name, c, 1, f"{shape} the frame's map ROI")
+            n_px = gm.map_h * gm.map_w
+            host, padded = batch_rows(rng, 3, w, h)
+            rows = torch.from_numpy(host).to(dev)
+            for name, c in batch_calls(rows[:, : 3 * n_px].view(3, 3, gm.map_h, gm.map_w)).items():
+                check_batched(name, c, 3, f"{shape} B=3 frame stride {padded}")
+            prof = device_profile(lambda: [c[2](0) for c in calls.values()], names=K.FUSED_PASS)
+            share = mask_share(np.ascontiguousarray(roi[..., ::-1]))
+            ops = {name: (base + hsv_ops * share) * n_px for name, (base, hsv_ops) in CLASSIFY_OPS.items()}
+            bounds = {
+                "classify_luma": bound(5 * n_px, ops["classify_luma"]),
+                "fused_mask": bound(3 * n_px + gm.map_h * ((gm.map_w + 7) // 8), ops["fused_mask"]),
+                "quiet_walk": bound(3 * n_px + 16, OPS_PER_PX["quiet_walk"] * n_px),
+            }
+            table[shape] = {name: {"us": prof["named_us"][name], "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"]}
+                            for name, b in bounds.items()}
+            print(f"resolutions: {label}: markers {got[0]}, ratio {got[1]:.6f}, minimap {got[2]} == oracle; hostpack "
+                  f"{pack_gpu.size} B == CPU path{engine}; kernels 1-3 bit-equal to their plain versions per frame "
+                  f"and at B=3; device us per frame on the frame's map ROI ({100 * share:.2f} % of pixels past the "
+                  f"max-byte mask; kernel rows; bound) "
+                  + ", ".join(f"{n} {t['us']:.2f} ({t['bound_us']:.2f}, {t['bound_by']})" for n, t in table[shape].items())
+                  + f" on {card}", flush=True)
+    finally:
+        for state in (card_state, cpu_state, oracle):
+            state.close()
+    print("resolutions: " + json.dumps(table), flush=True)
+    return launches
+
+
+VIDEO_GOLDENS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "goldens", "video_1080p.json")
+VIDEO_LAPS = 5  # analyze_video reads the 24 golden frames this many times over, for a rate past the set-up
+
+
+def phase_tools(dev: torch.device, card: str) -> dict:
+    """The port's operator entry points (smh_tpu_torch/tools/) on the card:
+    analyze_video's frame function over the video goldens' 24 frames, 5
+    times over, at B=8 (each row == tests/goldens/video_1080p.json:
+    sleeping, line counts, ends within 1.5 px; frames/s after the first
+    batch) and over an 8-frame drag at 1600x900 (an H * W = 2
+    mod 4 batch; rows == the per-frame state's); compare_backends on the
+    verify frame as a PNG (RESULT: PASS, exit 0); render_detections
+    --backend cuda writes the PNG bytes --backend numpy does."""
+    import contextlib
+    import io
+    import tempfile
+    import types
+
+    from PIL import Image
+
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.squadex.capture import Frame
+    from smh_tpu_torch.tools import analyze_video, compare_backends, render_detections
+
+    launches = {name: 0 for name in K.LAUNCHES}
+    with open(VIDEO_GOLDENS) as f:
+        golden = json.load(f)
+    frames = testing.make_video_frames(golden["w"], golden["h"], golden["n"]) * VIDEO_LAPS
+    rows, stamps = [], []
+
+    def emit(r):
+        rows.append(r)
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    n = _count(launches, lambda: analyze_video.analyze(frames, 8, SmhOcrEngine(), dev, emit=emit))
+    secs = time.perf_counter() - t0
+    batches = -(-len(frames) // 8)
+    require(n == len(rows) == len(frames), f"analyze_video: {n} frames, {len(rows)} rows")
+    require(all(K.LAUNCHES[k] == batches for k in K.FUSED_PASS), f"analyze_video: kernels 1-3 per batch {K.LAUNCHES}")
+    for r in rows:
+        g = golden["frames"][r["frame"] % golden["n"]]
+        require(r["sleeping"] == g["sleeping"], f"analyze_video frame {r['frame']}: sleeping {r['sleeping']}")
+        got = [(*p0, *p1) for p0, p1 in r["markers"]]
+        require(ends_close(got, g["lines"]), f"analyze_video frame {r['frame']}: lines {got} vs golden {g['lines']}")
+    # The rate from the first batch's rows to the last's: the pipeline's
+    # construction and the first batch's full upload lie before it.
+    steady = (n - 8) / (stamps[-1] - stamps[7])
+    print(f"tools: analyze_video over the {golden['w']}x{golden['h']} video goldens' {golden['n']} frames "
+          f"{VIDEO_LAPS} times ({n} frames, {batches} batches at B=8): every row == tests/goldens/video_1080p.json "
+          f"(ends within 1.5 px); {secs:.3f} s wall for the call (construction included), {steady:.2f} frames/s "
+          f"over the {n - 8} frames after the first batch on {card}", flush=True)
+
+    w, h = 1600, 900
+    drag = [testing.resolution_frame(w, h, i) for i in range(8)]
+    rows = []
+    _count(launches, lambda: analyze_video.analyze(drag, 8, SmhOcrEngine(), dev, emit=rows.append))
+    require(all(K.LAUNCHES[k] == 1 for k in K.FUSED_PASS), f"analyze_video {w}x{h}: kernels 1-3 {K.LAUNCHES}")
+    state = new_state(dev)
+    try:
+        want = []
+        for i, img in enumerate(drag):
+            r = state.process(Frame(img, 96))
+            want.append(analyze_video.row(i, types.SimpleNamespace(
+                sleeping=r is None, markers=r.markers if r else [], meters_to_px_ratio=r.meters_to_px_ratio if r else None,
+                minimap_bounds=r.minimap_bounds if r else None)))
+    finally:
+        state.close()
+    require(rows == want, f"analyze_video {w}x{h}: rows {rows} != the per-frame state's {want}")
+    print(f"tools: analyze_video over an 8-frame drag at {w}x{h} (H * W = 2 mod 4) at B=8: rows == the per-frame "
+          f"state's; markers {rows[0]['markers']} .. {rows[-1]['markers']}", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "verify.png")
+        Image.fromarray(frame_for(1920, 1080)[..., [2, 1, 0, 3]]).save(png)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = _count(launches, lambda: compare_backends.main([png, "--device", str(dev)]))
+        report = out.getvalue()
+        require(rc == 0 and report.splitlines()[-1] == "RESULT: PASS", f"compare_backends exit {rc}:\n{report}")
+        renders = {}
+        for backend in ("cuda", "numpy"):
+            dst = os.path.join(tmp, f"{backend}.png")
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = _count(launches, lambda: render_detections.main(
+                    [png, dst, "--backend", backend, "--device", str(dev)]))
+            require(rc == 0, f"render_detections --backend {backend} exit {rc}")
+            with open(dst, "rb") as f:
+                renders[backend] = f.read()
+        require(renders["cuda"] == renders["numpy"], "render_detections: the cuda PNG differs from the numpy PNG")
+    print("tools: compare_backends on the verify frame's PNG: RESULT: PASS, exit 0 ("
+          + "; ".join(l.strip() for l in report.splitlines()[:-1]) + f"); render_detections --backend cuda wrote "
+          f"the {len(renders['cuda'])} PNG bytes --backend numpy wrote", flush=True)
+    return launches
+
+
 WARMUP_CHILD = r"""
 import json, sys, time
 import torch
@@ -2007,14 +2229,16 @@ def main() -> int:
     # late in a run, short traces lost most of their records four times
     # running (device_profile).
     timed_phase("batch kernels", phase_batch_kernels, dev)
-    launches = phase_slice(dev)
-    main_paths = [launches, phase_dense(dev), phase_transports(dev), phase_debug(dev), phase_device_engine(dev)]
+    main_paths = [timed_phase("resolutions", phase_resolutions, dev, card)]
+    main_paths += [phase_slice(dev), phase_dense(dev), phase_transports(dev), phase_debug(dev),
+                   phase_device_engine(dev)]
     phase_timing(dev, card)
     phase_loop(dev)
     main_paths += [phase_live(dev, card), phase_live_window(dev, card), phase_app(dev)]
     main_paths.append(timed_phase("batch", phase_batch, dev, card))
     single_b8 = {h: us for h, us in kernels["ray_march"].pop("device_us_by_height").items()}
     main_paths.append(timed_phase("mesh", phase_mesh, dev, card, single_b8))
+    main_paths.append(timed_phase("tools", phase_tools, dev, card))
     timed_phase("warmup", phase_warmup, dev)
     timed_phase("worker", phase_worker, dev)
     leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "smh_tpu"))

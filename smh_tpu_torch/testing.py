@@ -188,6 +188,29 @@ def make_video_frames(w: int, h: int, n: int) -> list[np.ndarray]:
     return frames
 
 
+# Screen sizes users run, in the order chip_smoke.py's resolutions phase
+# resizes through. Map shapes 585x360, 779x394, 685x822, 585x702,
+# 1096x1314, 1096x2194 and 822x986: ragged edges at the fused mask's 128-px
+# and the quiet walk's 64-px tiles, and three with H * W = 2 (mod 4), where
+# the batched classify writes each frame's outputs into a padded row.
+RESOLUTIONS = ((1024, 768), (1280, 1024), (1600, 900), (1366, 768), (2560, 1440), (3440, 1440), (1920, 1080))
+
+
+def resolution_frame(w: int, h: int, step: int = 0) -> np.ndarray:
+    """A frame at any screen size: a marker line across the map ROI whose
+    far end moves 8 px right and 5 px up a step, "300m" in the BRQ and its
+    bar 22 px below the text's top (the bar scan reads 20/640 of the BRQ's
+    width below the text: 6 rows at 1024x768)."""
+    g = C.map_geometry(w, h)
+    return make_frame(
+        w, h,
+        marker_lines=[((int(0.12 * g.map_w), int(0.18 * g.map_h)),
+                       (int(0.7 * g.map_w) + 8 * step, int(0.63 * g.map_h) - 5 * step))],
+        scale_texts=[("300m", (30, 170))],
+        scale_bars=[(30, 192, 120, 1)],
+    )
+
+
 def upscale_frame(frame: np.ndarray, w: int, h: int) -> np.ndarray:
     """Nearest-neighbour upscale of a BGRA frame (4K stress corpus from the
     reference's 1440p screenshots — tests/goldens/detections_4k.json records

@@ -500,26 +500,31 @@ class WorkerClient:
                 with self._lock:
                     self._wfile = conn.makefile("w")
                 recycling = False
-                for line in rfile:
-                    msg = json.loads(line)
-                    ev = msg.get("event")
-                    self.last_event_ts = time.time()
-                    if ev == "warming":
-                        self.last_warming = msg
-                    elif ev == "ready":
-                        self.ready_info = msg
-                        self._ready.set()
-                        if self._maps_on:  # re-arm after a recycle restart
-                            self._send_cmd({"cmd": "maps", "on": True})
-                    elif ev == "recycling":
-                        recycling = True
-                        log.info("worker recycling after %s uploaded bytes", msg.get("h2d_bytes"))
-                    elif ev == "map":
-                        got = self.ring.read_map()
-                        if got is not None and self.on_map is not None:
-                            self.on_map(got[0], got[1])
-                    elif ev == "result":
-                        self.on_result(msg)
+                try:
+                    for line in rfile:
+                        msg = json.loads(line)
+                        ev = msg.get("event")
+                        self.last_event_ts = time.time()
+                        if ev == "warming":
+                            self.last_warming = msg
+                        elif ev == "ready":
+                            self.ready_info = msg
+                            self._ready.set()
+                            if self._maps_on:  # re-arm after a recycle restart
+                                self._send_cmd({"cmd": "maps", "on": True})
+                        elif ev == "recycling":
+                            recycling = True
+                            log.info("worker recycling after %s uploaded bytes", msg.get("h2d_bytes"))
+                        elif ev == "map":
+                            got = self.ring.read_map()
+                            if got is not None and self.on_map is not None:
+                                self.on_map(got[0], got[1])
+                        elif ev == "result":
+                            self.on_result(msg)
+                except ConnectionResetError:
+                    # The child exited with frames still unread on its
+                    # socket (a recycle mid-stream): that is its EOF.
+                    pass
                 conn.close()
                 try:
                     self._proc.wait(timeout=30)

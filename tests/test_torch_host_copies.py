@@ -100,12 +100,18 @@ COPIES = {
     "vision/backend.py": {"__doc__"},  # implemented by CudaBackend
     # --device to the child and its VisionState; a CUDA init and an 8-byte
     # round trip as the device attach; no compile cache; spawned as
-    # -m smh_tpu_torch.worker; the socket in the temporary directory.
+    # -m smh_tpu_torch.worker; the socket in the temporary directory; a
+    # reset from a child that exited with frames unread is its EOF.
     "worker.py": {
-        "__doc__", "_serve", "main", "WorkerClient.__init__", "WorkerClient._spawn", "import tempfile",
+        "__doc__", "_serve", "main", "WorkerClient.__init__", "WorkerClient._spawn", "WorkerClient._supervise",
+        "import tempfile",
     },
-    # Scale texts rendered from the bundled fonts.
-    "testing.py": {"__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS"},
+    # Scale texts rendered from the bundled fonts; the screen sizes the
+    # port is held at, with a frame for each.
+    "testing.py": {
+        "__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS",
+        "RESOLUTIONS", "resolution_frame",
+    },
     # --device (the App, its worker and --warmup run on it), no compile cache.
     "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},
 }
@@ -116,6 +122,10 @@ PORT_ONLY = {
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
     "vision/cuda_backend.py", "parallel/__init__.py", "parallel/dryrun.py", "parallel/spmd.py",
+    # The operator entry points: copies of the repo's tools/*.py (scripts
+    # outside smh_tpu), held to them by value in tests/test_torch_tools.py.
+    "tools/__init__.py", "tools/analyze_video.py", "tools/compare_backends.py", "tools/render_detections.py",
+    "tools/soak_corpus.py", "tools/soak_worker.py", "tools/probe_cold_start.py",
 }
 
 

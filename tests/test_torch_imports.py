@@ -129,6 +129,55 @@ def test_worker_child_imports_neither_jax_nor_smh_tpu():
     assert not _leaked(imported), _leaked(imported)
 
 
+def test_tools_import_neither_jax_nor_the_repos_tools(tmp_path):
+    """Every module of smh_tpu_torch.tools, then compare_backends,
+    render_detections and analyze_video's frame function run on the CPU in
+    a fresh interpreter: no module of jax or smh_tpu, and none from the
+    repo's tools/ directory, is loaded."""
+    from PIL import Image
+
+    from smh_tpu_torch import testing
+
+    png = tmp_path / "frame.png"
+    Image.fromarray(testing.make_frame(640, 360, marker_lines=[((30, 40), (220, 160))])[..., [2, 1, 0, 3]]).save(png)
+    modules, out = _run_and_list_modules(
+        "import importlib, pathlib, pkgutil\n"
+        "import smh_tpu_torch.tools as T\n"
+        "for m in pkgutil.iter_modules(T.__path__): importlib.import_module('smh_tpu_torch.tools.' + m.name)\n"
+        "from smh_tpu_torch import testing\n"
+        "from smh_tpu_torch.tools import analyze_video, compare_backends, render_detections\n"
+        f"assert compare_backends.main([{str(png)!r}, '--device', 'cpu']) == 0\n"
+        f"assert render_detections.main([{str(png)!r}, {str(tmp_path / 'out.png')!r}, '--device', 'cpu']) == 0\n"
+        "frames = [testing.make_frame(640, 360, marker_lines=[((30, 40), (220, 160))])] * 2\n"
+        "assert analyze_video.analyze(frames, batch=2, device='cpu', emit=lambda row: None) == 2\n"
+        f"tools = pathlib.Path({str(ROOT / 'tools')!r})\n"
+        "print('FROM_TOOLS', [n for n, m in list(sys.modules.items())\n"
+        "      if getattr(m, '__file__', None) and pathlib.Path(m.__file__).parent == tools])\n"
+    )
+    assert not _leaked(modules), _leaked(modules)
+    assert "FROM_TOOLS []" in out, out
+    names = {p.stem for p in (PKG / "tools").glob("*.py") if p.stem != "__init__"}
+    assert names == {"analyze_video", "compare_backends", "render_detections", "soak_corpus", "soak_worker",
+                     "probe_cold_start"}
+    assert {f"smh_tpu_torch.tools.{n}" for n in names} <= set(modules)
+
+
+@pytest.mark.parametrize("path", sorted((PKG / "tools").glob("*.py")), ids=lambda p: p.name)
+def test_tools_import_nothing_of_the_repos_tools_directory(path):
+    """The repo's tools/*.py are scripts that drive smh_tpu; no tool of the
+    port imports one of them (by its module name or through `tools`)."""
+    scripts = {p.stem for p in (ROOT / "tools").glob("*.py")} | {"tools"}
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in scripts, f"{path.name} imports {name}"
+
+
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_import_in_source(path):
     """No `import jax...` or `import smh_tpu...` (nor `from` forms) in any
