@@ -33,6 +33,16 @@ each printing a line, each failing loudly:
                its bound (bytes over 3.35 TB/s, operations over 67 T/s), its
                plain version's time, and its device time per call
                (profiler);
+     scales_read — kernel 5, the scales read, against its plain version:
+               every record lane equal but the glyph scores (within 1; the
+               count of differing score lanes printed) on the edge cases of
+               testing.scales_read_cases, random words, bars and blobs,
+               the verify frame's BRQ at 1080p and 4K, the BRQs of the seven
+               screen sizes (one frame and B = 3), and B = 1, 3 and 8
+               frames cut from the rows of one buffer (== the per-frame
+               kernel too); one CUDA launch per call; wrapper ms, device us
+               and plain ms at the 1080p and 4K BRQs, device us per batch at
+               B = 8, beside the bound;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
@@ -158,6 +168,10 @@ OPS_PER_S = 67e12
 # colour tests; classify_luma adds the luma to the first, fused_mask the
 # cross dilate and the bit pack.
 OPS_PER_PX = {"quiet_walk": 40}
+# The kernels every fused pass launches whatever the OCR engine: the
+# scales read (kernel 5) runs only where smhocr reads the scales on the
+# card (K.FUSED_PASS holds all four).
+KERNELS_1_3 = ("classify_luma", "quiet_walk", "fused_mask")
 CLASSIFY_OPS = {"classify_luma": (12, 30), "fused_mask": (10, 30)}
 
 
@@ -599,6 +613,165 @@ def phase_kernels(dev: torch.device) -> dict:
     return results
 
 
+def brq_planes(frame: np.ndarray) -> tuple:
+    """(text, sbool) bool planes of a BGRA frame's BRQ as the fused pass
+    makes them, from the numpy oracle: the OCR text mask and the scales
+    binarize (False = black)."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch.ocr.engine import OCR_BINARY_THRESHOLD
+    from smh_tpu_torch.vision import pixmath
+
+    g = C.map_geometry(frame.shape[1], frame.shape[0])
+    brq = np.ascontiguousarray(frame[g.brq_y : g.brq_y + g.brq_h, g.brq_x : g.brq_x + g.brq_w, 2::-1])
+    return pixmath.ocr_preprocess(brq) < OCR_BINARY_THRESHOLD, pixmath.find_scales_binarize(brq) != 0
+
+
+def random_scales_planes(rng, h: int, w: int) -> tuple:
+    """(text, sbool) of h x w: random "<n>m" words (real glyphs, 12-24 px)
+    with |----| bars below most of them, text-like noise blobs, and a
+    background whose black pixels come in runs of every length."""
+    from smh_tpu_torch import testing
+
+    text = rng.random((h, w)) < 0.002
+    sbool = rng.random((h, w)) < 0.9
+    for _ in range(int(rng.integers(1, 12))):
+        glyphs = testing.render_text_mask(f"{int(rng.integers(1, 10000))}m", int(rng.integers(12, 25))) != 0
+        gh, gw = glyphs.shape
+        if gh + 8 >= h or gw + 2 >= w:
+            continue
+        y, x = int(rng.integers(0, h - gh - 6)), int(rng.integers(0, w - gw))
+        text[y : y + gh, x : x + gw] |= glyphs
+        if rng.random() < 0.8:
+            by, x0, x1 = y + gh + int(rng.integers(0, 5)), max(x - int(rng.integers(0, 20)), 0), min(x + gw + 20, w - 1)
+            sbool[by, x0 : x1 + 1] = False
+            sbool[by : by + 4, x0] = sbool[by : by + 4, x1] = False
+    for _ in range(int(rng.integers(0, 20))):
+        bh, bw = int(rng.integers(1, 30)), int(rng.integers(1, 20))
+        y, x = int(rng.integers(0, h)), int(rng.integers(0, w))
+        text[y : y + bh, x : x + bw] = True
+    return text, sbool
+
+
+def phase_scales_read(dev: torch.device) -> dict:
+    """Kernel 5 (csrc/scales_read.cu) against its plain version on the
+    card: every lane equal but the glyph scores, which may differ by 1 (the
+    192-term sums and the template dots sum in another order; the count of
+    differing score lanes is printed), on the edge cases of
+    testing.scales_read_cases, random planes, the verify frame's BRQ at
+    1080p and 4K, the BRQs of the seven screen sizes, and B = 1, 3 and 8
+    frames cut from the rows of one buffer (odd strides; == the per-frame
+    kernel too); one CUDA launch per call (profiler); timed at the 1080p
+    and 4K BRQs and per batch at B = 8 beside the bound."""
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import scales_device as sd
+
+    rng = np.random.default_rng(10)
+    tpl = sd.templates_to_device(sd.device_templates(), dev)
+    n_tpl = tpl.shape[0]
+    score = torch.from_numpy(sd.score_lanes()).to(dev)
+    stats = {"calls": 0, "records": 0, "score_lanes_off": 0, "max_abs_err": 0}
+
+    def on_card(text, sbool):
+        return torch.from_numpy(np.ascontiguousarray(text)).to(dev), torch.from_numpy(np.ascontiguousarray(sbool)).to(dev)
+
+    def check(t, s, label: str) -> torch.Tensor:
+        before = K.LAUNCHES["scales_read"]
+        got = sd.scales_records(t, s, tpl)
+        require(K.LAUNCHES["scales_read"] == before + 1, f"scales_read: not one launch for {label}")
+        want = sd.scales_records_plain(t, s, tpl)
+        require(got.shape == want.shape and got.dtype == torch.int16, f"scales_read shape/dtype ({label})")
+        g_, w_ = got.reshape(-1, sd.REC_I16).int(), want.reshape(-1, sd.REC_I16).int()
+        require(torch.equal(g_[:, ~score], w_[:, ~score]),
+                f"scales_read kernel != plain outside the score lanes ({label}): lanes "
+                f"{torch.nonzero(g_ != w_)[:8].tolist()}, got {g_[g_ != w_][:8].tolist()} want {w_[g_ != w_][:8].tolist()}")
+        d = (g_[:, score] - w_[:, score]).abs()
+        err = int(d.max())
+        require(err <= 1, f"scales_read score lanes differ by {err} ({label})")
+        stats["calls"] += 1
+        stats["records"] += g_.shape[0]
+        stats["score_lanes_off"] += int((d != 0).sum())
+        stats["max_abs_err"] = max(stats["max_abs_err"], err)
+        return got
+
+    for name, (text, sbool) in testing.scales_read_cases().items():
+        check(*on_card(text, sbool), name)
+    print(f"scales_read: kernel == plain on the edge cases {sorted(testing.scales_read_cases())}", flush=True)
+    shapes = ((411, 493), (822, 986), (37, 53), (5, 15), (100, 2000))
+    for h, w in shapes:
+        for trial in range(4):
+            check(*on_card(*random_scales_planes(rng, h, w)), f"random {h}x{w} #{trial}")
+    print(f"scales_read: kernel == plain on random words, bars and blobs at {shapes}", flush=True)
+    brqs = {(w, h): brq_planes(frame_for(w, h)) for w, h in ((1920, 1080), (3840, 2160))}
+    for (w, h), planes in brqs.items():
+        rec = check(*on_card(*planes), f"verify frame {w}x{h}").cpu().numpy()
+        words = [x.text for x in sd.decode_records(rec).words]
+        require(words == ["300m"], f"scales_read on the verify frame's BRQ at {w}x{h} read {words}")
+    for w, h in testing.RESOLUTIONS:
+        frames = [brq_planes(testing.resolution_frame(w, h, step)) for step in range(3)]
+        check(*on_card(*frames[0]), f"resolution {w}x{h}")
+        check(*(torch.from_numpy(np.stack(p)).to(dev) for p in zip(*frames)), f"resolution {w}x{h} B=3")
+    print(f"scales_read: kernel == plain on the verify frame's BRQ at 1080p and 4K (read '300m') and on the "
+          f"BRQs of {len(testing.RESOLUTIONS)} screen sizes, one frame and B=3", flush=True)
+
+    # B frames cut from the rows of one buffer, the rows an odd length apart.
+    vt, vs = brqs[(1920, 1080)]
+    h, w = vt.shape
+    batches = {}
+    for bsz in BATCH_SIZES:
+        planes = [(vt, vs) if i % 3 == 0 else random_scales_planes(rng, h, w) for i in range(bsz)]
+        t_rows = torch.zeros((bsz, h * w + 37), dtype=torch.bool, device=dev)
+        s_rows = torch.ones((bsz, h * w + 11), dtype=torch.bool, device=dev)
+        t = t_rows[:, : h * w].view(bsz, h, w)
+        s_ = s_rows[:, : h * w].view(bsz, h, w)
+        for i, (a, b) in enumerate(planes):
+            t[i], s_[i] = on_card(a, b)
+        got = check(t, s_, f"B={bsz} strided")
+        for i in range(bsz):
+            require(torch.equal(got[i], sd.scales_records(t[i], s_[i], tpl)), f"scales_read B={bsz} frame {i} != per frame")
+        prof = device_profile(lambda: sd.scales_records(t, s_, tpl), names=("scales_read",))
+        require(prof["launches"] == 1.0 and prof["named"]["scales_read"] == 1.0,
+                f"scales_read B={bsz}: {prof['launches']} CUDA launches per call")
+        batches[bsz] = (t, s_, prof["named_us"]["scales_read"], got)
+    print(f"scales_read: B = {BATCH_SIZES} from one buffer (frame strides {h * w + 37} and {h * w + 11}) == plain "
+          f"and == the per-frame kernel; one CUDA launch per call (profiler); device us per call "
+          f"{ {b: round(v[2], 2) for b, v in batches.items()} }", flush=True)
+
+    def bound_of(recs: torch.Tensor, h: int, w: int) -> dict:
+        """Bytes: both planes read once, the templates, the records written;
+        operations: a test per text pixel and, per glyph the record holds,
+        the resample (~30 per pixel) and the template dots."""
+        recs = recs.reshape(-1, sd.REC_I16).cpu().numpy()
+        glyphs = int(recs[:, sd.HDR_I16 :].reshape(len(recs), sd.N_WORDS, sd.WORD_I16)[:, :, 0].sum())
+        nbytes = len(recs) * (2 * h * w + sd.REC_BYTES) + n_tpl * sd.GLYPH_H * sd.GLYPH_W * 4
+        return bound(nbytes, len(recs) * h * w + glyphs * sd.GLYPH_H * sd.GLYPH_W * (30 + 2 * n_tpl))
+
+    times = {}
+    for (fw, fh), planes in brqs.items():
+        t, s_ = on_card(*planes)
+        rec = sd.scales_records(t, s_, tpl)
+        times[fh] = {
+            "ms": cuda_ms(lambda: sd.scales_records(t, s_, tpl)),
+            "plain_ms": cuda_ms(lambda: sd.scales_records_plain(t, s_, tpl), n=10),
+            "device_us": device_us(lambda: sd.scales_records(t, s_, tpl)),
+            **bound_of(rec, *t.shape),
+        }
+        print(f"scales_read: {t.shape[0]}x{t.shape[1]} BRQ of the {fw}x{fh} verify frame: " + timing_line(times[fh]),
+              flush=True)
+    t, s_, us8, rec8 = batches[BATCH]
+    b8 = {"ms": cuda_ms(lambda: sd.scales_records(t, s_, tpl)), "device_us": us8, **bound_of(rec8, h, w)}
+    print(f"scales_read: B={BATCH} at {h}x{w} (one launch): wrapper {b8['ms']:.4f} ms, device {us8:.2f} us per "
+          f"batch ({us8 / BATCH:.2f} per frame) beside its bound {b8['bound_ms']:.5f} ms ({b8['bound_by']}); "
+          f"{stats['calls']} calls ({stats['records']} records) held against plain, {stats['score_lanes_off']} "
+          f"score lanes off by 1, every other lane equal", flush=True)
+    return {
+        "name": "scales_read", "route": "cuda", "source": "smh_tpu_torch/csrc/scales_read.cu",
+        "replaces": "smh_tpu/ops/scales_device.py:237", "max_abs_err": stats["max_abs_err"], **times[1080],
+        "library_ms": None, "shape": f"{h}x{w}", "device_us_4k": times[2160]["device_us"],
+        "device_us_b8": us8,
+    }
+
+
 def line_mask(h: int, w: int, lines) -> np.ndarray:
     """u8 0/255 mask of 1-px lines, L1-dilated like the fused pass's."""
     m = np.zeros((h, w), dtype=bool)
@@ -1000,7 +1173,7 @@ def phase_transports(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"transports skipped a kernel: {K.LAUNCHES}")
+            require(all(K.LAUNCHES[n] > 0 for n in KERNELS_1_3), f"transports skipped a kernel: {K.LAUNCHES}")
     print("transports: D2H bytes per frame " + json.dumps(d2h), flush=True)
     return launches
 
@@ -1108,7 +1281,8 @@ def phase_timing(dev: torch.device, card: str) -> None:
     fonts, so the Tesseract-flagged rows time the transport and the read.
     On the main path's state, a torch.profiler trace of warm sync frames
     counts the CUDA launches (kernels, memsets and copies: the rows whose
-    device_type is CUDA) and the device time per frame."""
+    device_type is CUDA), the scales read's one launch, and the device time
+    per frame."""
     from smh_tpu_torch.ops import kernels as K
     from smh_tpu_torch.ops import pipeline as opp
 
@@ -1155,7 +1329,8 @@ def phase_timing(dev: torch.device, card: str) -> None:
         print(f"timing: process() {w}x{h} {_summary(samples, stages)} on {card}; "
               f"the fused pass queued with no host sync", flush=True)
         print(f"timing: sync process() {w}x{h}: {per_frame['launches']:.1f} CUDA launches per frame "
-              f"({per_frame['kernels']:.1f} kernels, {per_frame['quiet_walk']:.1f} of them quiet_walk), "
+              f"({per_frame['kernels']:.1f} kernels, {per_frame['quiet_walk']:.1f} of them quiet_walk, "
+              f"{per_frame['scales_read']:.1f} scales_read of {per_frame['scales_read_us']:.2f} us), "
               f"device busy {per_frame['device_ms']:.3f} ms per frame (profiler, {per_frame['frames']} warm "
               f"frames) on {card}", flush=True)
 
@@ -1166,10 +1341,12 @@ def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
     walk's launches, and the device time per frame."""
     from smh_tpu_torch.squadex.capture import Frame
 
-    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=("quiet_walk",))
+    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=("quiet_walk", "scales_read"))
     require(prof["launches"] > 0, "the profiler saw no device rows")
+    require(prof["named"]["scales_read"] == 1.0, f"not one scales_read per sync frame: {prof['named']}")
     return {"frames": frames, "launches": prof["launches"], "kernels": prof["kernels"],
-            "quiet_walk": prof["named"]["quiet_walk"], "device_ms": prof["us"] / 1e3}
+            "quiet_walk": prof["named"]["quiet_walk"], "scales_read": prof["named"]["scales_read"],
+            "scales_read_us": prof["named_us"]["scales_read"], "device_ms": prof["us"] / 1e3}
 
 
 def phase_loop(dev: torch.device) -> None:
@@ -1649,7 +1826,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         for name, n in run.items():
             launches[name] += n
         require(all(run[n] == len(batches) for n in K.FUSED_PASS), f"{label}: not one launch per batch: {run}")
-        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 per batch (profiler) {prof}")
+        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 and 5 per batch (profiler) {prof}")
         require(stats["full_batches"] == 1 and stats["delta_batches"] == len(batches) - 1,
                 f"{label}: not a full batch, then deltas: {stats}")
         for bi, (batch, res) in enumerate(zip(batches, results)):
@@ -1662,7 +1839,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         print(f"batch: {label} over {len(batches)} batches of the drag: results == the per-frame VisionState "
               f"(== the oracle within 1.5 px on frame 0), stream(depth=2) == process(); "
               f"{prof['kernels']:.0f} kernel launches + {prof['launches'] - prof['kernels']:.0f} memset/copy rows "
-              f"per delta batch (profiler; classify_luma / fused_mask / quiet_walk {prof['named']}), device "
+              f"per delta batch (profiler; kernels 1-3 and the scales read {prof['named']}), device "
               f"{prof['kernel_us'] / 1e3:.3f} ms per batch; H2D bytes per batch {h2d} (full, then deltas); "
               f"process() {fps_process:.2f} frames/s, stream() {fps_stream:.2f} frames/s; stats t_* "
               f"{{{', '.join(f'{k} {v:.1f}' for k, v in stats.items() if k.startswith('t_'))}}} on {card}; "
@@ -1764,7 +1941,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
     the CPU (the kernels' plain versions); full_step's winners against the
     per-frame march; the dry run's full_step check on random frames;
     BatchPipeline(batch=8) on dp = 4 against one device over the drag,
-    kernels 1-3 at dp launches per batch. Returns the kernel launches of
+    kernels 1-3 and 5 at dp launches per batch. Returns the kernel launches of
     the driven calls."""
     from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
     from smh_tpu_torch.ops import kernels as K
@@ -1823,7 +2000,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
                         f"{label}: not a full upload per batch: {stats}")
                 prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS, tries=6)
                 require(prof["named"] == {n: 4.0 for n in K.FUSED_PASS},
-                        f"{label}: kernels 1-3 per batch (profiler) {prof['named']}, not 4 each")
+                        f"{label}: kernels 1-3 and 5 per batch (profiler) {prof['named']}, not 4 each")
             t1 = time.perf_counter()
             for b in batches:
                 bp.process(b)
@@ -1833,7 +2010,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
         require(results[label] == results["one device"], f"BatchPipeline {label} != one device")
     secs["batch pipeline"] = time.perf_counter() - t0
     print(f"mesh: BatchPipeline(batch={BATCH}) at {w}x{h} over {len(batches)} batches of the drag on {dev}: results of "
-          f"dp=4 == one device; kernels 1-3 per batch (profiler) {prof['named']}; process() frames/s "
+          f"dp=4 == one device; kernels 1-3 and 5 per batch (profiler) {prof['named']}; process() frames/s "
           + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
           + f" (one card: the cost of the split, not scaling) on {card}; seconds "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
@@ -1923,7 +2100,7 @@ def phase_resolutions(dev: torch.device, card: str) -> dict:
             rows = torch.from_numpy(host).to(dev)
             for name, c in batch_calls(rows[:, : 3 * n_px].view(3, 3, gm.map_h, gm.map_w)).items():
                 check_batched(name, c, 3, f"{shape} B=3 frame stride {padded}")
-            prof = device_profile(lambda: [c[2](0) for c in calls.values()], names=K.FUSED_PASS)
+            prof = device_profile(lambda: [c[2](0) for c in calls.values()], names=KERNELS_1_3)
             share = mask_share(np.ascontiguousarray(roi[..., ::-1]))
             ops = {name: (base + hsv_ops * share) * n_px for name, (base, hsv_ops) in CLASSIFY_OPS.items()}
             bounds = {
@@ -1987,7 +2164,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     secs = time.perf_counter() - t0
     batches = -(-len(frames) // 8)
     require(n == len(rows) == len(frames), f"analyze_video: {n} frames, {len(rows)} rows")
-    require(all(K.LAUNCHES[k] == batches for k in K.FUSED_PASS), f"analyze_video: kernels 1-3 per batch {K.LAUNCHES}")
+    require(all(K.LAUNCHES[k] == batches for k in K.FUSED_PASS), f"analyze_video: kernels 1-3 and 5 per batch {K.LAUNCHES}")
     for r in rows:
         g = golden["frames"][r["frame"] % golden["n"]]
         require(r["sleeping"] == g["sleeping"], f"analyze_video frame {r['frame']}: sleeping {r['sleeping']}")
@@ -2005,7 +2182,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     drag = [testing.resolution_frame(w, h, i) for i in range(8)]
     rows = []
     _count(launches, lambda: analyze_video.analyze(drag, 8, SmhOcrEngine(), dev, emit=rows.append))
-    require(all(K.LAUNCHES[k] == 1 for k in K.FUSED_PASS), f"analyze_video {w}x{h}: kernels 1-3 {K.LAUNCHES}")
+    require(all(K.LAUNCHES[k] == 1 for k in K.FUSED_PASS), f"analyze_video {w}x{h}: kernels 1-3 and 5 {K.LAUNCHES}")
     state = new_state(dev)
     try:
         want = []
@@ -2225,6 +2402,7 @@ def main() -> int:
 
     kernels = phase_kernels(dev)
     kernels["ray_march"] = phase_ray_march(dev)
+    kernels["scales_read"] = timed_phase("scales_read", phase_scales_read, dev)
     # Before the traces of thousands of launches (phase_timing, phase_batch):
     # late in a run, short traces lost most of their records four times
     # running (device_profile).

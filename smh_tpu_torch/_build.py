@@ -62,6 +62,9 @@ _SIGNATURES = {
     # (masks, mask_stride (bytes), H, W, pts, B, ...): smh_ray_march with
     # seed b's mask at masks + b * mask_stride
     "smh_ray_march_masks": [_VP, _I64, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    # (text, text_stride, sbool, sbool_stride (bytes between frames), tpl, T,
+    #  H, W, B, budget, out, stream)
+    "smh_scales_read": [_VP, _I64, _VP, _I64, _VP, _I, _I, _I, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,7 @@
 """The fused pass's three hand-written CUDA kernels, their wrappers, their
-plain PyTorch twins, and the launch counts of all four of the port's kernels
-(the fourth, the ray march, lives in ops/lsd.py).
+plain PyTorch twins, and the launch counts of all five of the port's kernels
+(the fourth, the ray march, lives in ops/lsd.py; the fifth, the scales
+read, in ops/scales_device.py).
 
 Counterpart of smh_tpu/ops/pallas_kernels.py. Each wrapper takes the plain
 version for tensors on the CPU, launches its kernel for tensors on a CUDA
@@ -51,6 +52,13 @@ they compute each frame's plain result.
   reaches device memory. Pad bits are zero, as in the XLA path (the Pallas
   kernel sets them where a marker touches the last column of a ragged
   row).
+* scales_device.scales_records -> csrc/scales_read.cu
+  Replaces smh_tpu/ops/scales_device.py::scales_records (XLA ops: a
+  lax.scan over glyph slots and vmaps over bands, word slots and frames;
+  plain twin scales_device.scales_records_plain). Two planes read, a
+  1,168 B record written per frame, but bound by the latency of its chain
+  of dependent phases (bands, glyph runs, windows, words, bar rows): one
+  block per frame, so a batch is one launch.
 """
 
 from __future__ import annotations
@@ -63,10 +71,12 @@ import torch
 
 from .. import _build, consts as C
 
-LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0}
-# The kernels every fused pass launches (ray_march runs on the
-# lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march).
-FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask")
+LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0}
+# The kernels every smhocr fused pass launches (ray_march runs on the
+# lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march; the
+# scales read runs where the pass reads the scales on the device, i.e.
+# under smhocr: scales_inline="device").
+FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "scales_read")
 
 # Tile of the quiet-walk kernel (TH rows x TW pixels in csrc/quiet_walk.cu):
 # the seams the tests and the chip smoke place their shapes around.

@@ -7,7 +7,7 @@ a row band). One call of `analyze_packed_flat` runs the whole device half of
 a frame: marker classify + luma (CUDA kernel 1), the L1 dilate, the dilated
 mask's bit plane (CUDA kernel 3), the OCR preprocess and scales binarize of
 the map's bottom-right quadrant, the minimap rect (CUDA kernel 2), the red
-gate, the on-device scales read, the mask bbox, the window crop or sparse
+gate, the on-device scales read (CUDA kernel 5), the mask bbox, the window crop or sparse
 word compaction and the checksums — all packed into ONE u8 hostpack whose
 bytes equal the JAX package's hostpack. `analyze_delta_flat` first rebuilds
 the frame from a device-resident buffer and the changed 32 B chunks (the
@@ -18,14 +18,14 @@ the isolated marker pixels and the cropped quadrant.
 over B frames at once (smh_tpu's batch throughput path): the building
 blocks below take an optional leading batch dimension, kernels 1-3 run ONCE
 per batch on [B, H, W] planes cut from the rows of the [B, padded] upload,
-and only the data-dependent scales read (`scales_records`) loops over the
-frames.
+and so does the scales read (`scales_records`, CUDA kernel 5: one block
+per frame).
 
 The window and band origins are device scalars: both are cut by a gather at
 origin + iota (scales_device._window), never by slicing at a host int.
 
-On a CUDA tensor the three kernels launch; on a CPU tensor their plain twins
-run (ops/kernels.py). Nothing here reads a tensor's value on the host or
+On a CUDA tensor the kernels launch; on a CPU tensor their plain twins run
+(ops/kernels.py, ops/scales_device.py). Nothing here reads a tensor's value on the host or
 copies from host memory (constants are made on the device: a pageable
 host-to-device copy would synchronise the stream), so a dispatch queues on
 the stream without waiting for it.
@@ -476,13 +476,7 @@ def _pack_outputs(
         elif scales_inline == "device":
             if templates is None:
                 raise ValueError('scales_inline="device" needs the template tensor')
-            if lead:
-                # Data-dependent bands, runs and words: one read per frame.
-                rec = torch.stack([
-                    sd.scales_records(keep[i], out["scales_bool"][i], templates) for i in range(lead[0])
-                ])
-            else:
-                rec = sd.scales_records(keep, out["scales_bool"], templates)
+            rec = sd.scales_records(keep, out["scales_bool"], templates)  # one launch for the batch
             parts.append(_bytes(rec, lead))
         elif scales_inline != "none":
             raise ValueError(f"unsupported scales_inline {scales_inline!r}")
@@ -589,7 +583,8 @@ def analyze_batch_packed_flat(
     "lsd_bits" [B, map_h, ceil(map_w/8)], "scalespack" [B, bytes]?,
     "resident"?}. Frame b's planes are views of row b (no layout copy), so
     kernels 1-3 run once for the batch on [B, H, W] planes that lie a row
-    apart; the scales read loops over the frames. `resident_row` returns a
+    apart, and the scales read (kernel 5) once on the batch's [B, h, w]
+    quadrants. `resident_row` returns a
     copy of that row as "resident": it seeds the batch delta chain. The
     JAX counterpart is smh_tpu.ops.pipeline._analyze_batch_packed(...,
     channels=3); each row's outputs equal analyze_packed_flat's."""

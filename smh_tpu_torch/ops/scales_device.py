@@ -1,13 +1,16 @@
 """On-device scale reading in PyTorch: glyph segmentation, template
 classification and the scale-bar scan, as one part of the fused pass.
 
-Port of smh_tpu/ops/scales_device.py. The device half (`scales_records`)
-reads the OCR text mask and the scales binarize plane and emits the same
-fixed-shape i16 record vector; the host half (`decode_records`,
-`ratio_from_records`) and `device_templates` are jax-free copies of the
-originals, pinned to them by the tests.
+Port of smh_tpu/ops/scales_device.py. The device half reads the OCR text
+mask and the scales binarize plane and emits the same fixed-shape i16
+record vector: `scales_records` launches the hand-written CUDA kernel
+csrc/scales_read.cu (one launch per call, a frame or a [B, H, W] batch)
+for tensors on a CUDA device and runs `scales_records_plain` for tensors
+on the CPU; there is no fallback from one to the other. The host half
+(`decode_records`, `ratio_from_records`) and `device_templates` are
+jax-free copies of the originals, pinned to them by the tests.
 
-Translation notes:
+Translation notes for the plain version:
   * `vmap` over bands / glyph slots / word slots is a written-out leading
     batch dimension;
   * the `lax.scan` that groups glyphs into words is a Python loop over the
@@ -30,6 +33,8 @@ import torch
 from ..ocr.engine import OCR_BINARY_THRESHOLD, OcrResult  # noqa: F401  (re-export)
 from ..ocr.smhocr import FONTS
 
+from .. import _build
+from . import kernels
 from .hsv import f32_scalar
 
 I32 = torch.int32
@@ -63,6 +68,11 @@ WORD_I16 = 24
 N_WORDS = MAX_BANDS * MAX_WPB
 REC_I16 = HDR_I16 + N_WORDS * WORD_I16
 REC_BYTES = REC_I16 * 2
+
+# Capacities of the kernel's shared memory (csrc/scales_read.cu): the
+# wrapper raises past them.
+MAX_TEMPLATES = 32
+MAX_DIM = 4096  # rows and columns of a plane
 
 
 def score_lanes() -> np.ndarray:
@@ -261,13 +271,16 @@ def _classify_windows(text_pad, by0s, bhs, gx0s, gws, valids, templates):
     return scores.argmax(dim=1), scores.amax(dim=1), gy0, gy1, count, ok
 
 
-def scales_records(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
-    """The full device scales read -> i16 [REC_I16] record vector.
+def scales_records_plain(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch twin of the scales read kernel -> i16 [REC_I16] record
+    vector ([B, REC_I16] for [B, H, W] planes, frame by frame).
 
     text:  bool [H, W] OCR text mask (ocr_img < OCR_BINARY_THRESHOLD).
     sbool: bool [H, W] scales binarize plane (True = non-black).
     templates: f32 [T, 192] from templates_to_device(device_templates(), dev).
     """
+    if text.dim() == 3:
+        return torch.stack([scales_records_plain(t, s, templates) for t, s in zip(text, sbool)])
     h, w = text.shape
     dev = text.device
     text_pad = torch.zeros((h + WIN_H, w + WIN_W), dtype=torch.bool, device=dev)
@@ -450,6 +463,51 @@ def scales_records(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Ten
     )
     rec = torch.cat([hdr, word_rec.reshape(-1)])
     return rec.to(torch.int16)
+
+
+def scales_records(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
+    """The device scales read -> i16 [REC_I16] record vector, or i16
+    [B, REC_I16] for [B, H, W] planes in ONE launch (a block per frame).
+
+    text, sbool: bool or u8 (nonzero = True) [H, W] or [B, H, W] planes of
+    one shape and device; each frame contiguous, the frames any stride(0)
+    >= H * W elements apart (the batched pass's rows). templates: f32
+    [T, 192] on the same device, T <= MAX_TEMPLATES. On the CPU the plain
+    version runs; on a CUDA device the kernel launches (LAUNCHES
+    "scales_read" counts it); anything else raises."""
+    for name, t in (("text", text), ("sbool", sbool)):
+        if t.dtype not in (torch.bool, torch.uint8) or t.dim() not in (2, 3):
+            raise ValueError(f"{name} must be a bool or u8 [H, W] or [B, H, W] plane, got {t.dtype} {tuple(t.shape)}")
+    if sbool.shape != text.shape or sbool.device != text.device or templates.device != text.device:
+        raise ValueError("text, sbool and templates differ in shape or device")
+    if templates.dtype != F32 or templates.dim() != 2 or templates.shape[1] != GLYPH_H * GLYPH_W:
+        raise ValueError(f"templates must be f32 [T, {GLYPH_H * GLYPH_W}], got {templates.dtype} {tuple(templates.shape)}")
+    if not 1 <= templates.shape[0] <= MAX_TEMPLATES:
+        raise ValueError(f"{templates.shape[0]} templates: the kernel holds 1 to {MAX_TEMPLATES}")
+    if text.numel() == 0:
+        raise ValueError(f"empty planes {tuple(text.shape)}")
+    device = text.device
+    if device.type == "cpu":
+        return scales_records_plain(text.bool(), sbool.bool(), templates)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    h, w = text.shape[-2:]
+    if h > MAX_DIM or w > MAX_DIM:
+        raise ValueError(f"planes of {h}x{w}: the kernel takes at most {MAX_DIM} rows and columns")
+    if not templates.is_contiguous():
+        raise ValueError("the kernel reads contiguous templates")
+    bsz = text.shape[0] if text.dim() == 3 else 1
+    out = torch.empty((bsz, REC_I16), dtype=torch.int16, device=device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        code = lib.smh_scales_read(
+            text.data_ptr(), kernels._frame_stride((text,)), sbool.data_ptr(), kernels._frame_stride((sbool,)),
+            templates.data_ptr(), templates.shape[0], h, w, bsz, scan_budget(w), out.data_ptr(),
+            kernels._stream_ptr(text),
+        )
+    _build.check(code, "smh_scales_read")
+    kernels.LAUNCHES["scales_read"] += 1
+    return out if text.dim() == 3 else out[0]
 
 
 # ---------------------------------------------------------------------------

@@ -258,3 +258,66 @@ def make_ocr_text_patch(
     ys = g.brq_y + brq_y
     xs = g.brq_x + brq_x
     frame[ys : ys + h, xs : xs + w, :3] = 230
+
+
+def scales_read_cases() -> dict:
+    """{name: (text, sbool)}: bool [H, W] planes (OCR text mask, scales
+    binarize with False = black) at the edges the scales read must get
+    right, each a plane as the BRQ would give it: real glyphs (DejaVu Sans)
+    and |----| bars with 4-row end ticks."""
+
+    def plane(h: int, w: int):
+        return np.zeros((h, w), bool), np.ones((h, w), bool)
+
+    def stamp(text_plane, label: str, x: int, y: int, height: int = 16) -> tuple:
+        glyphs = render_text_mask(label, height) != 0
+        gh, gw = glyphs.shape
+        text_plane[y : y + gh, x : x + gw] |= glyphs
+        return x, y, x + gw, y + gh  # the stamp's box
+
+    def bar(sbool, x0: int, y: int, x1: int, tick: int = 4) -> None:
+        sbool[y, x0 : x1 + 1] = False
+        sbool[y : y + tick, x0] = False
+        sbool[y : y + tick, x1] = False
+
+    cases = {}
+    # A word of 9 glyphs: the record keeps the first MAX_WG and flags it.
+    text, sbool = plane(60, 240)
+    x0, _, x1, y1 = stamp(text, "12345678m", 8, 8)
+    bar(sbool, x0, y1 + 2, x1)
+    cases["word_over_max_wg"] = (text, sbool)
+    # Six words in one band: more than MAX_WPB.
+    text, sbool = plane(50, 400)
+    for k in range(6):
+        x0, _, x1, y1 = stamp(text, f"{k + 1}m", 10 + 64 * k, 10)
+        bar(sbool, x0, y1 + 1, x1 + 14)
+    cases["words_over_max_wpb"] = (text, sbool)
+    # A band 80 rows tall (a stroke beside the text): taller than WIN_H.
+    text, sbool = plane(120, 160)
+    text[10:90, 4:7] = True
+    x0, _, x1, y1 = stamp(text, "300m", 30, 30)
+    bar(sbool, x0, y1 + 3, x1 + 40)
+    cases["band_taller_than_win_h"] = (text, sbool)
+    # 15 columns: scan_budget(15) = 0 rows.
+    text, sbool = plane(40, 15)
+    stamp(text, "3", 3, 6, height=14)
+    bar(sbool, 1, 24, 13)
+    cases["narrow_plane"] = (text, sbool)
+    # A bar from column 0: the left walk's sentinel reads it as a miss.
+    text, sbool = plane(50, 200)
+    x0, _, x1, y1 = stamp(text, "300m", 2, 8)
+    bar(sbool, 0, y1 + 2, x1 + 60)
+    cases["bar_at_column_0"] = (text, sbool)
+    # Text ending 10 rows above the last (scan_budget(320) = 10 rows), and
+    # bars whose ticks end on the last row (found) or would run past it
+    # (drawn 3 rows long: missed).
+    text, sbool = plane(40, 320)
+    gh = render_text_mask("50m", 16).shape[0]
+    x0, _, x1, _ = stamp(text, "50m", 10, 30 - gh)
+    bar(sbool, x0 - 4, 36, x1 + 20)
+    x0, _, x1, _ = stamp(text, "90m", 160, 30 - gh)
+    bar(sbool, x0 - 4, 37, x1 + 20, tick=3)
+    cases["bar_in_last_rows"] = (text, sbool)
+    # No text, every pixel black.
+    cases["empty_plane"] = (np.zeros((60, 80), bool), np.zeros((60, 80), bool))
+    return cases

@@ -107,10 +107,11 @@ COPIES = {
         "import tempfile",
     },
     # Scale texts rendered from the bundled fonts; the screen sizes the
-    # port is held at, with a frame for each.
+    # port is held at, with a frame for each; the scales read kernel's edge
+    # cases.
     "testing.py": {
         "__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS",
-        "RESOLUTIONS", "resolution_frame",
+        "RESOLUTIONS", "resolution_frame", "scales_read_cases",
     },
     # --device (the App, its worker and --warmup run on it), no compile cache.
     "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},

@@ -204,7 +204,9 @@ def test_build_command_compiles_the_csrc_files_for_sm90a():
     from smh_tpu_torch import _build
 
     srcs = _build.sources()
-    assert {p.name for p in srcs} == {"classify_luma.cu", "quiet_walk.cu", "fused_mask.cu", "ray_march.cu"}
+    assert {p.name for p in srcs} == {
+        "classify_luma.cu", "quiet_walk.cu", "fused_mask.cu", "ray_march.cu", "scales_read.cu",
+    }
     assert {p.name for p in _build.headers()} == {"classify.cuh"}
     assert all(p.parent == CSRC for p in srcs)
     objdir = pathlib.Path("obj")
@@ -272,7 +274,12 @@ def test_classify_launch_counter_untouched_on_cpu():
 
     cos_t, sin_t = tlsd.theta_tables("cpu")
     tlsd.ray_march(p, torch.tensor([[2.0, 3.0]]), 2, tlsd.SPAN0, cos_t, sin_t)
-    assert kernels.LAUNCHES == {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0}
+    from smh_tpu_torch.ops import scales_device as tsd
+
+    tsd.scales_records(p != 0, p != 0, torch.zeros((1, tsd.GLYPH_H * tsd.GLYPH_W)))
+    assert kernels.LAUNCHES == {
+        "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
+    }
 
 
 def test_wrappers_reject_bad_inputs():
