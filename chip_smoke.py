@@ -36,13 +36,16 @@ each printing a line, each failing loudly:
      scales_read — kernel 5, the scales read, against its plain version:
                every record lane equal but the glyph scores (within 1; the
                count of differing score lanes printed) on the edge cases of
-               testing.scales_read_cases, random words, bars and blobs,
-               the verify frame's BRQ at 1080p and 4K, the BRQs of the seven
-               screen sizes (one frame and B = 3), and B = 1, 3 and 8
-               frames cut from the rows of one buffer (== the per-frame
-               kernel too); one CUDA launch per call; wrapper ms, device us
-               and plain ms at the 1080p and 4K BRQs, device us per batch at
-               B = 8, beside the bound;
+               testing.scales_read_cases (one at a time, and B = 1, 3 and 8
+               at a time from strided buffers), random words, bars and
+               blobs, the verify frame's BRQ at 1080p and 4K, the BRQs of
+               the seven screen sizes (one frame and B = 3), and B = 1, 3
+               and 8 frames cut from the rows of one buffer (== the
+               per-frame kernel too); one CUDA launch per call; wrapper ms,
+               device us and plain ms at the 1080p and 4K BRQs, device us
+               per batch at B = 8, beside the bound and the chain floor
+               (probe_scales_read.chain_floor: its patched builds time each
+               dependent step of the cluster's chain);
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
@@ -657,11 +660,12 @@ def phase_scales_read(dev: torch.device) -> dict:
     card: every lane equal but the glyph scores, which may differ by 1 (the
     192-term sums and the template dots sum in another order; the count of
     differing score lanes is printed), on the edge cases of
-    testing.scales_read_cases, random planes, the verify frame's BRQ at
-    1080p and 4K, the BRQs of the seven screen sizes, and B = 1, 3 and 8
-    frames cut from the rows of one buffer (odd strides; == the per-frame
-    kernel too); one CUDA launch per call (profiler); timed at the 1080p
-    and 4K BRQs and per batch at B = 8 beside the bound."""
+    testing.scales_read_cases (also B = 1, 3 and 8 of them at a time from
+    strided buffers), random planes, the verify frame's BRQ at 1080p and
+    4K, the BRQs of the seven screen sizes, and B = 1, 3 and 8 frames cut
+    from the rows of one buffer (odd strides; == the per-frame kernel too);
+    one CUDA launch per call (profiler); timed at the 1080p and 4K BRQs and
+    per batch at B = 8 beside the bound and the chain floor."""
     from smh_tpu_torch import testing
     from smh_tpu_torch.ops import kernels as K
     from smh_tpu_torch.ops import scales_device as sd
@@ -671,6 +675,17 @@ def phase_scales_read(dev: torch.device) -> dict:
     n_tpl = tpl.shape[0]
     score = torch.from_numpy(sd.score_lanes()).to(dev)
     stats = {"calls": 0, "records": 0, "score_lanes_off": 0, "max_abs_err": 0}
+
+    # templates 4 bytes past an aligned address: the wrapper refuses them and launches nothing
+    odd = torch.empty(tpl.numel() + 1, dtype=tpl.dtype, device=dev)[1:].view_as(tpl)
+    odd.copy_(tpl)
+    blank, before = torch.zeros((20, 40), dtype=torch.bool, device=dev), K.LAUNCHES["scales_read"]
+    try:
+        sd.scales_records(blank, blank, odd)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused and K.LAUNCHES["scales_read"] == before, "scales_read took templates at an unaligned address")
 
     def on_card(text, sbool):
         return torch.from_numpy(np.ascontiguousarray(text)).to(dev), torch.from_numpy(np.ascontiguousarray(sbool)).to(dev)
@@ -694,9 +709,30 @@ def phase_scales_read(dev: torch.device) -> dict:
         stats["max_abs_err"] = max(stats["max_abs_err"], err)
         return got
 
-    for name, (text, sbool) in testing.scales_read_cases().items():
+    cases = testing.scales_read_cases()
+    for name, (text, sbool) in cases.items():
         check(*on_card(text, sbool), name)
-    print(f"scales_read: kernel == plain on the edge cases {sorted(testing.scales_read_cases())}", flush=True)
+    # The edge cases B at a time, padded to one shape (no text, no black),
+    # cut from the rows of one buffer an odd number of bytes apart.
+    names = sorted(cases)
+    for bsz in BATCH_SIZES:
+        for start in range(0, len(names), bsz):
+            group = [names[(start + i) % len(names)] for i in range(bsz)]
+            h = max(cases[n][0].shape[0] for n in group)
+            w = max(cases[n][0].shape[1] for n in group)
+            t_rows = torch.zeros((bsz, h * w + 37), dtype=torch.bool, device=dev)
+            s_rows = torch.ones((bsz, h * w + 11), dtype=torch.bool, device=dev)
+            t = t_rows[:, : h * w].view(bsz, h, w)
+            s_ = s_rows[:, : h * w].view(bsz, h, w)
+            for i, n in enumerate(group):
+                ph, pw = cases[n][0].shape
+                t[i, :ph, :pw], s_[i, :ph, :pw] = on_card(*cases[n])
+            got = check(t, s_, f"edge cases {group}")
+            for i in range(bsz):
+                require(torch.equal(got[i], sd.scales_records(t[i], s_[i], tpl)),
+                        f"scales_read edge cases B={bsz} frame {i} ({group[i]}) != per frame")
+    print(f"scales_read: kernel == plain on the edge cases {names}, one at a time and B = {BATCH_SIZES} at a "
+          f"time from strided buffers (== the per-frame kernel)", flush=True)
     shapes = ((411, 493), (822, 986), (37, 53), (5, 15), (100, 2000))
     for h, w in shapes:
         for trial in range(4):
@@ -758,6 +794,15 @@ def phase_scales_read(dev: torch.device) -> dict:
         }
         print(f"scales_read: {t.shape[0]}x{t.shape[1]} BRQ of the {fw}x{fh} verify frame: " + timing_line(times[fh]),
               flush=True)
+    from smh_tpu_torch import probe_scales_read
+
+    t, s_ = on_card(*brqs[(1920, 1080)])
+    chain = probe_scales_read.chain_floor(t[None], s_[None], tpl, device_profile)
+    lat = chain["latency_us"]
+    print(f"scales_read: chain floor at 411x493 {chain['floor_us']:.2f} us = "
+          + " + ".join(f"{k} x {step} {lat[step]:.3f}" for step, k in chain["steps"].items())
+          + f" (probe builds, as built {chain['kernel_us']:.2f} us), beside the bytes bound "
+          f"{times[1080]['bound_ms'] * 1e3:.3f} us and the kernel's {times[1080]['device_us']:.2f} us", flush=True)
     t, s_, us8, rec8 = batches[BATCH]
     b8 = {"ms": cuda_ms(lambda: sd.scales_records(t, s_, tpl)), "device_us": us8, **bound_of(rec8, h, w)}
     print(f"scales_read: B={BATCH} at {h}x{w} (one launch): wrapper {b8['ms']:.4f} ms, device {us8:.2f} us per "
@@ -768,7 +813,7 @@ def phase_scales_read(dev: torch.device) -> dict:
         "name": "scales_read", "route": "cuda", "source": "smh_tpu_torch/csrc/scales_read.cu",
         "replaces": "smh_tpu/ops/scales_device.py:237", "max_abs_err": stats["max_abs_err"], **times[1080],
         "library_ms": None, "shape": f"{h}x{w}", "device_us_4k": times[2160]["device_us"],
-        "device_us_b8": us8,
+        "device_us_b8": us8, "chain_floor_us": chain["floor_us"],
     }
 
 

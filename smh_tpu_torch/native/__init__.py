@@ -5,7 +5,10 @@ The reference ships its host hot loops as Rust+rayon; here they are C++
 built into `smh_tpu_torch/build/native-<hash>/`, keyed by a hash of the
 source, the consts and the flags (never into the source tree), under a
 temporary name that is renamed into place, so concurrent builders never
-load a torn file. If the toolchain or build fails, `load()` returns None
+load a torn file. One process builds at a time (an `fcntl.flock` on a file
+in the build directory); the others wait for it and load its library
+instead of compiling their own. If the toolchain or build fails, `load()`
+returns None
 and `build_error` keeps the compiler's message: the numpy oracle needs no
 native module, while CudaBackend raises with that message.
 """
@@ -13,6 +16,7 @@ native module, while CudaBackend raises with that message.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import logging
 import os
@@ -59,7 +63,7 @@ def _build(out: pathlib.Path) -> bool:
         (tmp / "smh_consts.h").write_text(C.generate_c_header())
         cmd = ["g++", *_FLAGS, "-I", str(tmp), "-o", str(tmp / out.name), str(_SRC), "-lm"]
         try:
-            subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=120)
+            subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
         except subprocess.CalledProcessError as e:
             build_error = f"{' '.join(cmd)} (exit {e.returncode}):\n{e.stderr}"
         except (subprocess.TimeoutExpired, FileNotFoundError) as e:
@@ -82,8 +86,12 @@ def load() -> Optional[ctypes.CDLL]:
             return _lib
         _tried = True
         so = lib_path()
-        if not so.exists() and not _build(so):
-            return None
+        if not so.exists():
+            so.parent.mkdir(parents=True, exist_ok=True)
+            with open(so.parent / "build.lock", "w") as lock:
+                fcntl.flock(lock, fcntl.LOCK_EX)  # another process's build finishes first
+                if not so.exists() and not _build(so):
+                    return None
         try:
             lib = ctypes.CDLL(str(so))
         except OSError as e:

@@ -4,7 +4,8 @@ classification and the scale-bar scan, as one part of the fused pass.
 Port of smh_tpu/ops/scales_device.py. The device half reads the OCR text
 mask and the scales binarize plane and emits the same fixed-shape i16
 record vector: `scales_records` launches the hand-written CUDA kernel
-csrc/scales_read.cu (one launch per call, a frame or a [B, H, W] batch)
+csrc/scales_read.cu (one launch per call, a frame or a [B, H, W] batch,
+a thread block cluster per frame)
 for tensors on a CUDA device and runs `scales_records_plain` for tensors
 on the CPU; there is no fallback from one to the other. The host half
 (`decode_records`, `ratio_from_records`) and `device_templates` are
@@ -73,6 +74,10 @@ REC_BYTES = REC_I16 * 2
 # wrapper raises past them.
 MAX_TEMPLATES = 32
 MAX_DIM = 4096  # rows and columns of a plane
+# The kernel's launch: a thread block cluster of CLUSTER blocks of THREADS
+# threads per frame (one block per band, MAX_BANDS <= CLUSTER).
+CLUSTER = 8
+THREADS = 512
 
 
 def score_lanes() -> np.ndarray:
@@ -152,6 +157,9 @@ def scan_budget(brq_w: int) -> int:
     """Rows below a text bottom the bar scan examines: round-half-up of
     (20/640) * image_width."""
     return int((20.0 / 640.0) * brq_w + 0.5)
+
+
+MAX_BUDGET = scan_budget(MAX_DIM)  # the most rows the kernel's bar scan reads below a word
 
 
 # ---------------------------------------------------------------------------
@@ -467,7 +475,8 @@ def scales_records_plain(text: torch.Tensor, sbool: torch.Tensor, templates: tor
 
 def scales_records(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Tensor) -> torch.Tensor:
     """The device scales read -> i16 [REC_I16] record vector, or i16
-    [B, REC_I16] for [B, H, W] planes in ONE launch (a block per frame).
+    [B, REC_I16] for [B, H, W] planes in ONE launch (a cluster of CLUSTER
+    blocks per frame).
 
     text, sbool: bool or u8 (nonzero = True) [H, W] or [B, H, W] planes of
     one shape and device; each frame contiguous, the frames any stride(0)
@@ -494,8 +503,8 @@ def scales_records(text: torch.Tensor, sbool: torch.Tensor, templates: torch.Ten
     h, w = text.shape[-2:]
     if h > MAX_DIM or w > MAX_DIM:
         raise ValueError(f"planes of {h}x{w}: the kernel takes at most {MAX_DIM} rows and columns")
-    if not templates.is_contiguous():
-        raise ValueError("the kernel reads contiguous templates")
+    if not templates.is_contiguous() or templates.data_ptr() % 16:
+        raise ValueError("the kernel reads contiguous templates from a 16-byte aligned address")
     bsz = text.shape[0] if text.dim() == 3 else 1
     out = torch.empty((bsz, REC_I16), dtype=torch.int16, device=device)
     lib = _build.load()

@@ -320,4 +320,57 @@ def scales_read_cases() -> dict:
     cases["bar_in_last_rows"] = (text, sbool)
     # No text, every pixel black.
     cases["empty_plane"] = (np.zeros((60, 80), bool), np.zeros((60, 80), bool))
+    # The kernel's cluster reads the rows in strips of whole 32-row words:
+    # a band whose rows straddle the seam at row 32 (and one at row 64).
+    text, sbool = plane(140, 200)
+    x0, _, x1, y1 = stamp(text, "300m", 12, 26)
+    bar(sbool, x0 - 2, y1 + 2, x1 + 30)
+    x0, _, x1, y1 = stamp(text, "75m", 100, 58)
+    bar(sbool, x0, y1 + 1, x1 + 10)
+    cases["bands_across_strip_seams"] = (text, sbool)
+    # A band taller than WIN_H whose word lies below the band's first WIN_H
+    # rows: the window holds only the stroke; the band is flagged.
+    text, sbool = plane(150, 160)
+    text[4:110, 2:4] = True
+    x0, _, x1, y1 = stamp(text, "200m", 40, 80)
+    bar(sbool, x0, y1 + 2, x1 + 20)
+    cases["word_below_win_h"] = (text, sbool)
+    # Eight text lines: more than MAX_BANDS bands (the overflow flag; the
+    # first MAX_BANDS read).
+    text, sbool = plane(8 * 22 + 6, 120)
+    for k in range(8):
+        x0, _, x1, y1 = stamp(text, f"{k + 1}0m", 8 + 6 * k, 4 + 22 * k)
+        bar(sbool, x0, y1 + 1, x1 + 12)
+    cases["bands_over_max_bands"] = (text, sbool)
+    # scan_budget(640) = 20 rows below words that end 8 rows above the last:
+    # the scan's rows run past h - BAR_H. One bar fits in the last rows
+    # (found), one would need rows past the plane (missed).
+    text, sbool = plane(40, 640)
+    gh = render_text_mask("400m", 16).shape[0]
+    x0, _, x1, _ = stamp(text, "400m", 20, 32 - gh)
+    bar(sbool, x0, 36, x1 + 10)
+    x0, _, x1, _ = stamp(text, "800m", 300, 32 - gh)
+    bar(sbool, x0, 38, x1 + 10, tick=2)
+    cases["bar_rows_past_the_plane"] = (text, sbool)
+    # Bars that reach the last column (found: the right walk stops there)
+    # and that span the whole row (the column-0 sentinel: missed).
+    text, sbool = plane(70, 180)
+    x0, _, x1, y1 = stamp(text, "100m", 120, 6)
+    bar(sbool, x0 - 10, y1 + 2, 179)
+    x0, _, x1, y1 = stamp(text, "5m", 60, 40)
+    bar(sbool, 0, y1 + 2, 179)
+    cases["bars_to_the_last_column"] = (text, sbool)
+    # 77 columns: rows start at every byte offset mod 16, so no staged span
+    # is 16-byte aligned.
+    text, sbool = plane(90, 77)
+    for k, y in enumerate((5, 35, 62)):
+        x0, _, x1, y1 = stamp(text, f"{k + 2}m", 3 + 9 * k, y)
+        bar(sbool, x0 + 1, y1 + 1, min(x1 + 15, 75))
+    cases["width_77"] = (text, sbool)
+    # 20 rows: fewer than one 32-row strip, so one block of the cluster
+    # reads them all.
+    text, sbool = plane(20, 120)
+    x0, _, x1, y1 = stamp(text, "60m", 10, 2)
+    bar(sbool, x0, y1 + 1, x1 + 20)
+    cases["plane_shorter_than_a_strip"] = (text, sbool)
     return cases

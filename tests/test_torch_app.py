@@ -18,13 +18,13 @@ from smh_tpu.settings import Settings as JSettings
 from smh_tpu.squadex.capture import Frame as JFrame, StaticSource as JStaticSource
 from smh_tpu.vision.reference import DebugView as JDebugView
 from smh_tpu_torch import app as tapp
-from smh_tpu_torch import native, testing
+from smh_tpu_torch import testing
 from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
 from smh_tpu_torch.settings import Settings
 from smh_tpu_torch.squadex.capture import Frame, StaticSource
 from smh_tpu_torch.vision.reference import DebugView
 from smh_tpu_torch.vision import pipeline as tpipeline
-from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
+from test_torch_reference import _reference_native, port_native  # noqa: F401  (module-scoped fixtures)
 
 torch.set_num_threads(1)
 
@@ -54,7 +54,7 @@ def test_cuda_asked_for_without_a_card_raises():
                  ocr_engine=SmhOcrEngine())
 
 
-@pytest.mark.skipif(not native.available(), reason="the native host module did not build")
+@pytest.mark.usefixtures("port_native")
 def test_pipelined_app_on_cpu_delivers_an_update():
     frame = testing.make_frame(
         1280, 720, marker_lines=[((120, 150), (380, 320))],
@@ -94,7 +94,7 @@ def _hw_settings(cls=Settings):
     return s
 
 
-@pytest.mark.skipif(not native.available(), reason="the native host module did not build")
+@pytest.mark.usefixtures("port_native")
 def test_debug_view_endpoint_answers_as_the_jax_app():
     """/api/debug-view is served whenever the web server runs: after one
     processed frame, every view answers with the JAX App's status, and the

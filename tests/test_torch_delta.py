@@ -18,14 +18,14 @@ from smh_tpu_torch import native
 from smh_tpu_torch import testing
 from smh_tpu_torch.ops import pipeline as tpp
 from smh_tpu_torch.vision import cuda_backend as cb
-from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
+from test_torch_reference import _reference_native, port_native  # noqa: F401  (module-scoped fixtures)
 
 torch.set_num_threads(1)
 
 
 W, H = 1280, 720
 
-pytestmark = pytest.mark.skipif(not native.available(), reason="the native host module did not build")
+pytestmark = pytest.mark.usefixtures("port_native")  # waits for the build; never skips on a slow one
 
 
 def frame_with(off=0, brq_patch=False):

@@ -59,10 +59,11 @@ COPIES = {
     "utils/plot.py": set(),
     "utils/ringlog.py": set(),
     # Builds into smh_tpu_torch/build/native-<hash>/ under a temporary name
-    # renamed into place, and keeps the compiler's message.
+    # renamed into place, one process at a time under a file lock, and keeps
+    # the compiler's message.
     "native/__init__.py": {
         "__doc__", "_SO", "_BUILD_ROOT", "_FLAGS", "build_error", "lib_path", "_build", "load",
-        "import hashlib", "import os", "import shutil",
+        "import fcntl", "import hashlib", "import os", "import shutil",
     },
     "vision/pixmath.py": set(),
     "vision/lsd.py": set(),
@@ -120,6 +121,7 @@ DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/
 # The port's own modules: the device half and the package's entry points.
 PORT_ONLY = {
     "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
+    "probe_scales_read.py",
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
     "vision/cuda_backend.py", "parallel/__init__.py", "parallel/dryrun.py", "parallel/spmd.py",

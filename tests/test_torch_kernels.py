@@ -18,6 +18,7 @@ from smh_tpu.ops import pallas_kernels as pk
 from smh_tpu.ops import pipeline as opp
 from smh_tpu_torch import probe_classify
 from smh_tpu_torch import probe_ray_march
+from smh_tpu_torch import probe_scales_read
 from smh_tpu_torch import probe_quiet_walk as probe
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
@@ -256,6 +257,30 @@ def test_ray_march_probe_patches_apply(variant):
     src = probe_ray_march.patched(CSRC, probe_ray_march.VARIANTS[variant])["ray_march.cu"]
     assert (src == (CSRC / "ray_march.cu").read_text()) == (not probe_ray_march.VARIANTS[variant])
     assert "smh_ray_march" in src and "__global__" in src
+
+
+@pytest.mark.parametrize("variant", sorted(probe_scales_read.VARIANTS))
+def test_scales_read_probe_patches_apply(variant):
+    """Each variant and ablation of the scales read probe applies to the
+    source as it is, each of its texts exactly once in the text the patches
+    before it left, and changes it (except the unpatched build)."""
+    text = (CSRC / "scales_read.cu").read_text()
+    src = text
+    for old, new in probe_scales_read.VARIANTS[variant]:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert src == probe_scales_read.patched(CSRC, probe_scales_read.VARIANTS[variant])["scales_read.cu"]
+    assert (src == text) == (not probe_scales_read.VARIANTS[variant])
+    assert "smh_scales_read" in src and "__global__" in src
+
+
+def test_scales_read_probe_phases_open_at_top_level():
+    """The cumulative ablations stop the kernel where each phase opens: one
+    top-level comment per phase, in order, in the kernel's body."""
+    text = (CSRC / "scales_read.cu").read_text()
+    body = text[text.index("scales_read_kernel("):]
+    at = [body.index(f"\n  // {k}. ") for k in sorted(probe_scales_read.PHASES)]
+    assert at == sorted(at) and all(text.count(f"\n  // {k}. ") == 1 for k in probe_scales_read.PHASES)
 
 
 def test_sources_note_the_kernels_they_replace():

@@ -29,6 +29,7 @@ from __future__ import annotations
 import fcntl
 import os
 import pathlib
+import shutil
 import subprocess
 import tempfile
 import time
@@ -116,6 +117,21 @@ def reference_native(timeout_s: float = TIMEOUT_S):
 @pytest.fixture(autouse=True, scope="module")
 def _reference_native():
     reference_native()
+
+
+@pytest.fixture(scope="module")
+def port_native():
+    """The port's native module, built if need be (one process builds under
+    its file lock; the rest wait for it and load its library). A test that
+    needs it fails with the compiler's message if it does not build, and
+    skips only on a machine with no g++."""
+    from smh_tpu_torch import native
+
+    if not native.available():
+        if shutil.which("g++") is None:
+            pytest.skip("no g++: the port's native module cannot build")
+        pytest.fail(f"the port's native module did not build: {native.build_error}", pytrace=False)
+    return native
 
 
 def test_reference_native_loads():

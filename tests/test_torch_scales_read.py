@@ -102,6 +102,22 @@ def test_edge_case_matches_jax(case):
         assert len(words) == 2 and bars[0][0] == h - tsd.BAR_H and bars[1] is None
     if case == "empty_plane":
         assert n_bands == 0 and flags == 0 and not words
+    if case == "bands_across_strip_seams":  # each band straddles a 32-row seam
+        assert n_bands == 2 and band_bits == 0 and len(words) == 2 and None not in bars
+    if case == "word_below_win_h":  # the window holds the stroke alone, which fails the gate
+        assert n_bands == 1 and band_bits == 1 and not words
+    if case == "bands_over_max_bands":
+        assert n_bands == tsd.MAX_BANDS and flags == tsd.FLAG_BAND_OVERFLOW and len(words) == tsd.MAX_BANDS
+    if case == "bar_rows_past_the_plane":
+        h = text.shape[0]
+        assert words[0][4] + tsd.scan_budget(text.shape[1]) > h - tsd.BAR_H
+        assert bars[0] is not None and bars[0][0] == h - tsd.BAR_H and bars[1] is None
+    if case == "bars_to_the_last_column":  # the right walk stops at the last column; a bar from column 0 misses
+        assert bars[0] == (bars[0][0], bars[0][1], text.shape[1] - 2) and bars[1] is None
+    if case == "width_77":
+        assert text.shape[1] % 16 and len(words) == 3 and None not in bars
+    if case == "plane_shorter_than_a_strip":
+        assert text.shape[0] < 32 and len(words) == 1 and bars[0] is not None
 
 
 def _batch_planes(cases, extra: int):
@@ -142,6 +158,26 @@ def test_batch_equals_frames_and_vmapped_jax(extra):
     for i, case in enumerate(cases):
         _assert_records_match(got[i].numpy(), want[i])
     assert any(tsd.decode_records(r.numpy()).words for r in got)
+
+
+_jvrec = jax.jit(jax.vmap(jsd.scales_records, in_axes=(0, 0, None)))
+
+
+@pytest.mark.parametrize("extra", [1, 15])
+def test_edge_cases_batched_at_odd_strides_match_vmapped_jax(extra):
+    """Every edge case but the narrow plane (which smh_tpu's scan cannot
+    read), padded to one shape, in one call whose frames lie an odd number
+    of bytes apart: == the per-frame records == jax.vmap of smh_tpu's
+    scales_records."""
+    cases = [c for c in sorted(EDGES) if c != "narrow_plane"]
+    text, sbool = _batch_planes(cases, extra)
+    assert text.stride(0) % 2 == 1
+    got = tsd.scales_records(text, sbool, _tpl())
+    for i in range(len(cases)):
+        assert torch.equal(got[i], tsd.scales_records(text[i], sbool[i], _tpl()))
+    want = np.asarray(_jvrec(jnp.asarray(text.numpy()), jnp.asarray(sbool.numpy()), jnp.asarray(_TPL)))
+    for i in range(len(cases)):
+        _assert_records_match(got[i].numpy(), want[i])
 
 
 def test_batched_pass_reads_the_scales_in_one_call(monkeypatch):
@@ -203,7 +239,7 @@ def _cu_const(name: str) -> int:
 @pytest.mark.parametrize("name", [
     "GLYPH_W", "GLYPH_H", "MAX_BANDS", "MAX_GPB", "MAX_WPB", "MAX_WG", "WIN_H", "WIN_W", "MIN_GLYPH_PX",
     "MIN_GLYPH_H", "MAX_GLYPH_H", "MIN_SCALE_WIDTH", "BAR_H", "HDR_I16", "FLAG_BAND_OVERFLOW", "WORD_I16",
-    "N_WORDS", "REC_I16", "MAX_TEMPLATES", "MAX_DIM",
+    "N_WORDS", "REC_I16", "MAX_TEMPLATES", "MAX_DIM", "CLUSTER", "THREADS", "MAX_BUDGET",
 ])
 def test_kernel_constants_equal_the_modules(name):
     assert _cu_const(name) == getattr(tsd, name)
