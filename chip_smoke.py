@@ -46,11 +46,31 @@ each printing a line, each failing loudly:
                per batch at B = 8, beside the bound and the chain floor
                (probe_scales_read.chain_floor: its patched builds time each
                dependent step of the cluster's chain);
+     brq_preprocess — kernel 6, the quadrant's text preprocess, against its
+               plain twin (every output bit-equal: ocr_img, the text and
+               scales planes, the scales bits, the checksums) on
+               testing.brq_preprocess_cases (ragged widths, strict pixels
+               by the last rows and columns, tile seams, dense planes;
+               contiguous and as windows of a padded plane), random planes
+               at both quadrant shapes, the mesh's row bands, the verify
+               frame's quadrant at 1080p and 4K, the seven screen sizes'
+               quadrants (one and B = 3), and B = 1, 3 and 8 quadrants of
+               rows one buffer apart (== the per-frame kernel); one launch
+               per call; timed at both quadrants and at B = 8;
+     mask_words — kernel 7, the marker mask's bbox and sparse words,
+               against its plain twin (every lane) on
+               testing.mask_bits_cases (empty, full, corners, nz around the
+               budget, ragged widths) at budgets 0, 1, 64 and 256, the
+               verify frame's mask bits, random masks at every sparse rung
+               (a dense 4K mask among them), and B = 1, 3 and 8 planes of
+               one buffer (== the per-frame kernel); one launch per call;
+               timed at both map shapes and at B = 8;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
-               launched by the main path, and the hostpack bytes against
-               the same backend on the CPU (plain versions); then a
+               launched once per pass by the main path, and the hostpack
+               bytes against the same backend on the CPU (plain versions);
+               then a
                dense-marker sequence until the sparse transport steps
                aside, its full-plane hostpacks (kernel 3's bytes) against
                the CPU path;
@@ -70,7 +90,8 @@ each printing a line, each failing loudly:
                device read with the native and the cuda LSD engine (and
                the latter's ray_march launches per frame), and a
                Tesseract-flagged engine on a static frame and over the drag;
-               CUDA launches and device time per sync frame (profiler);
+               CUDA launches and device time per sync frame (profiler), one
+               launch of each kernel of the pass;
   7. loop    — CaptureThread -> VisionLoop delivers an update;
   8. live    — the pipelined VisionLoop (delta upload, consume views, async
                fetch) over a cycling marker-drag sequence at 1080p and 4K,
@@ -84,8 +105,8 @@ each printing a line, each failing loudly:
                and band gathers in the submit half, also under "error");
   9. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
                pipelined with async scales, delivers an update and stops;
- 10. batch kernels — kernels 1-3 over a whole batch in one launch: B = 1, 3
-               and 8 frames cut from the rows of a [B, padded] buffer (and
+ 10. batch kernels — kernels 1-3, 6 and 7 over a whole batch in one
+               launch: B = 1, 3 and 8 frames cut from the rows of a [B, padded] buffer (and
                rows one byte longer: odd frame strides) at the 1080p and 4K
                map shapes, each torch.equal to its plain version and to the
                per-frame kernel frame by frame; one kernel launch per
@@ -120,9 +141,9 @@ each printing a line, each failing loudly:
                1366x768, 2560x1440, 3440x1440 and 1920x1080: markers, ratio
                and minimap equal to the oracle's, hostpack bytes equal to a
                CPU state's, lsd_engine="cuda" against the oracle at 1024x768
-               and 3440x1440; kernels 1-3 at each map shape bit-equal to
-               their plain versions per frame and at B=3, their device us
-               beside their bound;
+               and 3440x1440; kernels 1-3, 6 and 7 at each map shape
+               bit-equal to their plain versions per frame and at B=3,
+               their device us beside their bound;
  16. tools   — (run after the mesh) the operator entry points of
                smh_tpu_torch/tools/: analyze_video's frame function over the
                video goldens (24 frames 5 times at B=8, frames/s after the
@@ -170,11 +191,15 @@ OPS_PER_S = 67e12
 # passes the value mask) -- the max, min and mask test, then the HSV and
 # colour tests; classify_luma adds the luma to the first, fused_mask the
 # cross dilate and the bit pack.
-OPS_PER_PX = {"quiet_walk": 40}
+OPS_PER_PX = {"quiet_walk": 40, "brq_preprocess": 40, "mask_words": 8}
 # The kernels every fused pass launches whatever the OCR engine: the
 # scales read (kernel 5) runs only where smhocr reads the scales on the
-# card (K.FUSED_PASS holds all four).
-KERNELS_1_3 = ("classify_luma", "quiet_walk", "fused_mask")
+# card (K.FUSED_PASS holds all six).
+EVERY_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "mask_words")
+# The budget kernel 7 is checked and timed at outside the main path: the
+# sparse ladder's starting rung (vision/cuda_backend.py::_SPARSE_BUDGETS
+# [_SP_RUNG_DEFAULT]), which holds the verify frame's mask at 1080p and 4K.
+MASK_BUDGET = 1024
 CLASSIFY_OPS = {"classify_luma": (12, 30), "fused_mask": (10, 30)}
 
 
@@ -242,6 +267,22 @@ def cuda_ms(fn, n: int = N_TIMED) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def kernel_bytes(name: str, map_h: int, map_w: int, budget: int = MASK_BUDGET) -> int:
+    """The bytes one frame's call of a kernel of the fused pass must move
+    at a map shape: each input read once, each output written once."""
+    n_px, bits = map_h * map_w, map_h * ((map_w + 7) // 8)
+    q_px, q_bits = (map_h // 2) * (map_w // 2), (map_h // 2) * ((map_w // 2 + 7) // 8)
+    return {
+        "classify_luma": 5 * n_px,
+        "fused_mask": 3 * n_px + bits,
+        "quiet_walk": 3 * n_px + 16,
+        # R, G, B and luma in; ocr, text, sbool and the scales bits out; 16 B of checks
+        "brq_preprocess": 7 * q_px + q_bits + 16,
+        # the bit plane in; the bbox, nz and the budget's idx and dat out
+        "mask_words": bits + 4 * (7 + 2 * budget),
+    }[name]
 
 
 def bound(nbytes: float, ops: float) -> dict:
@@ -817,6 +858,248 @@ def phase_scales_read(dev: torch.device) -> dict:
     }
 
 
+def map_brq(frame: np.ndarray, dev: torch.device) -> tuple:
+    """(r, g, b, luma) of a BGRA frame's bottom-right quadrant as the fused
+    pass hands them to kernel 6: windows of the map ROI's B, G, R planes
+    (one flat buffer, as uploaded) and of kernel 1's luma."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch.ops import kernels as K
+
+    g = C.map_geometry(frame.shape[1], frame.shape[0])
+    roi = frame[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w, :3]
+    planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(roi, -1, 0))).to(dev)
+    b8, g8, r8 = planes[0], planes[1], planes[2]
+    _, luma = K.classify_luma_planes(r8, g8, b8)
+    q = (slice(g.map_h // 2, 2 * (g.map_h // 2)), slice(g.map_w // 2, 2 * (g.map_w // 2)))
+    return r8[q], g8[q], b8[q], luma[q]
+
+
+def phase_brq_preprocess(dev: torch.device) -> dict:
+    """Kernel 6 (csrc/brq_preprocess.cu), the quadrant's text preprocess,
+    bit-equal to its plain twin on the card, every output: on
+    testing.brq_preprocess_cases (as windows of a padded plane too), the
+    verify frame's quadrant at 1080p and 4K, the quadrants of the seven
+    screen sizes, random dense planes at both quadrant shapes, the mesh's
+    row bands (row0 > 0 in a taller quadrant), and B = 1, 3 and 8 frames cut
+    from the rows of one buffer an odd number of bytes apart (== the
+    per-frame kernel too); one launch per call (LAUNCHES, and the profiler's
+    kernel rows). Timed at both quadrants and at B = 8 beside its bound."""
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(12)
+    calls = 0
+
+    def check(planes, label: str, **kw) -> dict:
+        nonlocal calls
+        before = K.LAUNCHES["brq_preprocess"]
+        got = K.brq_preprocess(*planes, **kw)
+        require(K.LAUNCHES["brq_preprocess"] == before + 1, f"brq_preprocess: not one launch for {label}")
+        want = K.brq_preprocess_plain(*planes, **kw)
+        for k, v in want.items():
+            require(got[k].shape == v.shape and got[k].dtype == v.dtype, f"brq_preprocess {k} shape/dtype ({label})")
+            if not torch.equal(got[k], v):
+                at = torch.nonzero(got[k] != v)[:8].tolist()
+                raise RuntimeError(f"check failed: brq_preprocess {k} kernel != plain ({label}) at {at}")
+        calls += 1
+        return got
+
+    def windows(rgb: np.ndarray, pad: tuple = (0, 0)) -> tuple:
+        """rgb's planes as windows of planes pad rows and columns larger,
+        with their plain luma."""
+        h, w, _ = rgb.shape
+        big = np.zeros((3, h + pad[0], w + pad[1]), np.uint8)
+        big[:, pad[0] :, pad[1] :] = np.moveaxis(rgb, -1, 0)
+        planes = torch.from_numpy(big).to(dev)
+        luma = K.classify_luma_planes_plain(planes[0], planes[1], planes[2])[1]
+        return tuple(p[pad[0] :, pad[1] :] for p in (planes[0], planes[1], planes[2], luma))
+
+    cases = testing.brq_preprocess_cases(rng)
+    for name, rgb in cases.items():
+        check(windows(rgb), name)
+        check(windows(rgb, (3, 5)), f"{name} in a padded plane")
+    print(f"brq_preprocess: kernel == plain on the edge cases {sorted(cases)}, contiguous and as windows of a "
+          f"padded plane", flush=True)
+    for h, w in ((411, 493), (822, 986)):
+        for share in (0.05, 0.5, 0.95):
+            check(windows(testing.text_rgb(rng, h, w, share), (h, w)), f"random {h}x{w} share {share}")
+    rgb = testing.text_rgb(rng, 120, 200, 0.6)
+    for row0, rows in ((0, 40), (37, 43), (97, 23)):
+        lo, hi = max(0, row0 - 3), min(120, row0 + rows + 3)
+        band = check(windows(rgb[lo:hi]), f"band {lo}..{hi}", row0=lo, total_h=120)
+        whole = K.brq_preprocess_plain(*windows(rgb))
+        require(torch.equal(band["ocr_img"][row0 - lo : row0 - lo + rows], whole["ocr_img"][row0 : row0 + rows]),
+                f"brq_preprocess band at {row0} != the whole quadrant's rows")
+    print("brq_preprocess: kernel == plain on random planes at 411x493 and 822x986 (5-95 % of pixels at the "
+          "thresholds) and on mesh bands (row0 > 0, == the whole quadrant's rows)", flush=True)
+    verify = {}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        verify[h] = map_brq(frame_for(w, h), dev)
+        got = check(verify[h], f"verify frame {w}x{h}")
+        require(int(got["text"].sum()) > 0, f"no text in the verify frame's quadrant at {w}x{h}")
+    for w, h in testing.RESOLUTIONS:
+        frames = [map_brq(testing.resolution_frame(w, h, step), dev) for step in range(3)]
+        check(frames[0], f"resolution {w}x{h}")
+        check(tuple(torch.stack([f[c] for f in frames]) for c in range(4)), f"resolution {w}x{h} B=3")
+    print(f"brq_preprocess: kernel == plain on the verify frame's quadrant at 1080p and 4K and on the quadrants "
+          f"of {len(testing.RESOLUTIONS)} screen sizes, one frame and B=3", flush=True)
+
+    # B frames as the batched pass cuts them: plane-major rows of one buffer
+    # an odd number of bytes apart, the quadrant windows of each, kernel 1's
+    # luma of the batch.
+    h, w = 822, 986
+    batched = {}
+    for bsz in BATCH_SIZES:
+        rows = torch.zeros((bsz, 3 * h * w + 37), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            rgb = testing.text_rgb(rng, h, w, 0.2)
+            rows[i, : 3 * h * w] = torch.from_numpy(np.moveaxis(rgb[..., ::-1], -1, 0).reshape(-1)).to(dev)
+        planes = rows[:, : 3 * h * w].view(bsz, 3, h, w)
+        b8, g8, r8 = planes[:, 0], planes[:, 1], planes[:, 2]
+        _, luma = K.classify_luma_planes(r8, g8, b8)
+        brq = tuple(p[:, h // 2 :, w // 2 :] for p in (r8, g8, b8, luma))
+        got = check(brq, f"B={bsz} strided")
+        for i in range(bsz):
+            one = K.brq_preprocess(*(p[i] for p in brq))
+            require(all(torch.equal(got[k][i], one[k]) for k in one), f"brq_preprocess B={bsz} frame {i} != per frame")
+        prof = device_profile(lambda: K.brq_preprocess(*brq), names=("brq_preprocess",))
+        require(prof["kernels"] == 1.0 and prof["named"]["brq_preprocess"] == 1.0,
+                f"brq_preprocess B={bsz}: {prof['kernels']} kernel launches per call")
+        batched[bsz] = (brq, prof["named_us"]["brq_preprocess"], prof["us"])
+    print(f"brq_preprocess: B = {BATCH_SIZES} quadrants of 411x493 from one buffer (frame stride {3 * h * w + 37}) "
+          f"== plain and == the per-frame kernel; one kernel launch per call (profiler; + the checks' memset); "
+          f"device us per call {({b: round(v[1], 2) for b, v in batched.items()})}", flush=True)
+
+    def bound_of(bsz: int, qh: int, qw: int) -> dict:
+        return bound(bsz * kernel_bytes("brq_preprocess", 2 * qh, 2 * qw), bsz * OPS_PER_PX["brq_preprocess"] * qh * qw)
+
+    times = {}
+    for (fw, fh), hh in (((1920, 1080), 1080), ((3840, 2160), 2160)):
+        planes = verify[hh]
+        prof = device_profile(lambda: K.brq_preprocess(*planes), names=("brq_preprocess",))
+        times[hh] = {
+            "ms": cuda_ms(lambda: K.brq_preprocess(*planes)),
+            "plain_ms": cuda_ms(lambda: K.brq_preprocess_plain(*planes), n=10),
+            "device_us": prof["named_us"]["brq_preprocess"], "call_us": prof["us"],
+            **bound_of(1, *planes[0].shape),
+        }
+        print(f"brq_preprocess: {planes[0].shape[0]}x{planes[0].shape[1]} quadrant of the {fw}x{fh} verify frame: "
+              + timing_line(times[hh]) + f"; the call with its memset {prof['us']:.2f} us", flush=True)
+    brq, us8, call8 = batched[BATCH]
+    b8 = {"ms": cuda_ms(lambda: K.brq_preprocess(*brq)), **bound_of(BATCH, *brq[0].shape[-2:])}
+    print(f"brq_preprocess: B={BATCH} quadrants of {brq[0].shape[-2]}x{brq[0].shape[-1]} (one launch): wrapper "
+          f"{b8['ms']:.4f} ms, device {us8:.2f} us per batch ({us8 / BATCH:.2f} per frame) beside its bound "
+          f"{b8['bound_ms']:.5f} ms ({b8['bound_by']}); {calls} calls held against plain, every output equal",
+          flush=True)
+    return {
+        "name": "brq_preprocess", "route": "cuda", "source": "smh_tpu_torch/csrc/brq_preprocess.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:497", "max_abs_err": 0, **times[1080], "library_ms": None,
+        "shape": "411x493", "device_us_4k": times[2160]["device_us"], "device_us_b8": us8,
+    }
+
+
+def phase_mask_words(dev: torch.device) -> dict:
+    """Kernel 7 (csrc/mask_words.cu), the marker mask's bbox and sparse
+    words, bit-equal to its plain twin on the card, every lane: on
+    testing.mask_bits_cases at budgets 0, 1, 64 and 256 (empty and full
+    masks, a pixel at each corner, nz = budget - 1, budget, budget + 1,
+    ragged widths), the verify frame's mask bits at 1080p and 4K, random
+    masks at both map shapes at every _SPARSE_BUDGETS rung (a dense 4K mask
+    among them), and B = 1, 3 and 8 planes cut from the rows of one buffer
+    (== the per-frame kernel); one launch per call. Timed at both map
+    shapes and at B = 8 beside its bound."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision.cuda_backend import _SPARSE_BUDGETS
+
+    rng = np.random.default_rng(13)
+    calls = 0
+
+    def check(bits: torch.Tensor, w: int, budget: int, label: str) -> torch.Tensor:
+        nonlocal calls
+        before = K.LAUNCHES["mask_words"]
+        got = K.mask_bbox_sparse(bits, w, budget)
+        require(K.LAUNCHES["mask_words"] == before + 1, f"mask_words: not one launch for {label}")
+        want = K.mask_bbox_sparse_plain(bits, w, budget)
+        require(got.shape == want.shape and got.dtype == torch.int32, f"mask_words shape/dtype ({label})")
+        if not torch.equal(got, want):
+            at = torch.nonzero(got != want)[:8].tolist()
+            raise RuntimeError(f"check failed: mask_words kernel != plain ({label}, budget {budget}) at {at}")
+        calls += 1
+        return got
+
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for budget in (0, 1, 64, 256):
+        cases = testing.mask_bits_cases(max(budget, 2))
+        for name, (bits, w) in cases.items():
+            check(on_card(bits), w, budget, name)
+    print(f"mask_words: kernel == plain on the edge cases {sorted(cases)} at budgets 0, 1, 64 and 256", flush=True)
+    verify = {}
+    for w, h in ((1920, 1080), (3840, 2160)):
+        gm = C.map_geometry(w, h)
+        frame = frame_for(w, h)
+        roi = frame[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w, :3]
+        planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(roi, -1, 0))).to(dev)
+        verify[h] = (K.fused_mask_bits(planes[2], planes[1], planes[0]), gm.map_w)
+        got = check(*verify[h], MASK_BUDGET, f"verify frame {w}x{h}")
+        require(0 < int(got[6]) <= MASK_BUDGET, f"the verify frame's mask at {w}x{h} holds {int(got[6])} words")
+    dense = {}
+    for h, w in ((822, 986), (1644, 1972)):
+        for density in (0.0005, 0.02, 0.5):
+            bits = on_card(np.packbits(rng.random((h, w)) < density, axis=1))
+            for budget in _SPARSE_BUDGETS:
+                got = check(bits, w, budget, f"random {h}x{w} density {density}")
+            dense[f"{h}x{w} {density}"] = int(got[6])
+    print(f"mask_words: kernel == plain on the verify frame's mask bits at 1080p and 4K and on random masks at every "
+          f"rung {_SPARSE_BUDGETS} (non-zero words {dense})", flush=True)
+    h, w = 822, 986
+    bpr = (w + 7) // 8
+    batched = {}
+    for bsz in BATCH_SIZES:
+        rows = torch.zeros((bsz, h * bpr + 3), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            rows[i, : h * bpr] = on_card(np.packbits(rng.random((h, w)) < 0.0002 * (i + 1), axis=1)).reshape(-1)
+        bits = rows[:, : h * bpr].view(bsz, h, bpr)
+        got = check(bits, w, MASK_BUDGET, f"B={bsz} strided")
+        for i in range(bsz):
+            require(torch.equal(got[i], K.mask_bbox_sparse(bits[i], w, MASK_BUDGET)), f"mask_words B={bsz} frame {i}")
+        prof = device_profile(lambda: K.mask_bbox_sparse(bits, w, MASK_BUDGET), names=("mask_words",))
+        require(prof["launches"] == 1.0 and prof["named"]["mask_words"] == 1.0,
+                f"mask_words B={bsz}: {prof['launches']} CUDA launches per call")
+        batched[bsz] = (bits, prof["named_us"]["mask_words"])
+    print(f"mask_words: B = {BATCH_SIZES} bit planes of {h}x{w} from one buffer (frame stride {h * bpr + 3}) == plain "
+          f"and == the per-frame kernel; one CUDA launch per call (profiler); device us per call "
+          f"{({b: round(v[1], 2) for b, v in batched.items()})}", flush=True)
+
+    def bound_of(bsz: int, mh: int, mw: int) -> dict:
+        words = mh * (((mw + 7) // 8 + 3) // 4)
+        return bound(bsz * kernel_bytes("mask_words", mh, mw), bsz * OPS_PER_PX["mask_words"] * words)
+
+    times = {}
+    for hh, (bits, mw) in verify.items():
+        times[hh] = {
+            "ms": cuda_ms(lambda: K.mask_bbox_sparse(bits, mw, MASK_BUDGET)),
+            "plain_ms": cuda_ms(lambda: K.mask_bbox_sparse_plain(bits, mw, MASK_BUDGET), n=10),
+            "device_us": device_us(lambda: K.mask_bbox_sparse(bits, mw, MASK_BUDGET)),
+            **bound_of(1, bits.shape[0], mw),
+        }
+        print(f"mask_words: {bits.shape[0]}x{mw} mask bits of the verify frame at {hh}p, budget {MASK_BUDGET}: "
+              + timing_line(times[hh]), flush=True)
+    bits, us8 = batched[BATCH]
+    b8 = {"ms": cuda_ms(lambda: K.mask_bbox_sparse(bits, w, MASK_BUDGET)), **bound_of(BATCH, h, w)}
+    print(f"mask_words: B={BATCH} at {h}x{w} (one launch): wrapper {b8['ms']:.4f} ms, device {us8:.2f} us per batch "
+          f"({us8 / BATCH:.2f} per frame) beside its bound {b8['bound_ms']:.5f} ms ({b8['bound_by']}); {calls} calls "
+          f"held against plain, every lane equal", flush=True)
+    return {
+        "name": "mask_words", "route": "cuda", "source": "smh_tpu_torch/csrc/mask_words.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:326", "max_abs_err": 0, **times[1080], "library_ms": None,
+        "shape": "822x986", "device_us_4k": times[2160]["device_us"], "device_us_b8": us8,
+    }
+
+
 def line_mask(h: int, w: int, lines) -> np.ndarray:
     """u8 0/255 mask of 1-px lines, L1-dilated like the fused pass's."""
     m = np.zeros((h, w), dtype=bool)
@@ -1010,7 +1293,7 @@ def phase_slice(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(K.LAUNCHES[n] > 0 for n in K.FUSED_PASS), f"main path skipped a kernel: {K.LAUNCHES}")
+            require(all(K.LAUNCHES[n] == 1 for n in K.FUSED_PASS), f"not one launch of each kernel: {K.LAUNCHES}")
             be = state.delegate.backend
             require(be.name == "cuda" and be.device.type == "cuda", "the CUDA backend did not run")
             pack_gpu = be._results["hostpack"].cpu().numpy()
@@ -1218,7 +1501,7 @@ def phase_transports(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(K.LAUNCHES[n] > 0 for n in KERNELS_1_3), f"transports skipped a kernel: {K.LAUNCHES}")
+            require(all(K.LAUNCHES[n] > 0 for n in EVERY_PASS), f"transports skipped a kernel: {K.LAUNCHES}")
     print("transports: D2H bytes per frame " + json.dumps(d2h), flush=True)
     return launches
 
@@ -1373,11 +1656,12 @@ def phase_timing(dev: torch.device, card: str) -> None:
             state.close()
         print(f"timing: process() {w}x{h} {_summary(samples, stages)} on {card}; "
               f"the fused pass queued with no host sync", flush=True)
+        named = ", ".join(f"{n} {per_frame['named'][n]:.1f} of {per_frame['named_us'][n]:.2f} us"
+                          for n in per_frame["named"])
         print(f"timing: sync process() {w}x{h}: {per_frame['launches']:.1f} CUDA launches per frame "
-              f"({per_frame['kernels']:.1f} kernels, {per_frame['quiet_walk']:.1f} of them quiet_walk, "
-              f"{per_frame['scales_read']:.1f} scales_read of {per_frame['scales_read_us']:.2f} us), "
-              f"device busy {per_frame['device_ms']:.3f} ms per frame (profiler, {per_frame['frames']} warm "
-              f"frames) on {card}", flush=True)
+              f"({per_frame['kernels']:.1f} kernels, among them {named}), device busy "
+              f"{per_frame['device_ms']:.3f} ms per frame (profiler, {per_frame['frames']} warm frames) on {card}",
+              flush=True)
 
 
 def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
@@ -1386,12 +1670,14 @@ def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
     walk's launches, and the device time per frame."""
     from smh_tpu_torch.squadex.capture import Frame
 
-    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=("quiet_walk", "scales_read"))
+    from smh_tpu_torch.ops import kernels as K
+
+    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=K.FUSED_PASS)
     require(prof["launches"] > 0, "the profiler saw no device rows")
-    require(prof["named"]["scales_read"] == 1.0, f"not one scales_read per sync frame: {prof['named']}")
-    return {"frames": frames, "launches": prof["launches"], "kernels": prof["kernels"],
-            "quiet_walk": prof["named"]["quiet_walk"], "scales_read": prof["named"]["scales_read"],
-            "scales_read_us": prof["named_us"]["scales_read"], "device_ms": prof["us"] / 1e3}
+    require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"not one launch of each kernel per sync frame: "
+            f"{prof['named']}")
+    return {"frames": frames, "launches": prof["launches"], "kernels": prof["kernels"], "named": prof["named"],
+            "named_us": prof["named_us"], "device_ms": prof["us"] / 1e3}
 
 
 def phase_loop(dev: torch.device) -> None:
@@ -1729,10 +2015,17 @@ def batch_rows(rng, bsz: int, w: int, h: int, extra: int = 0) -> tuple:
 def batch_calls(planes: torch.Tensor) -> dict:
     """{kernel: (the batched call, frame i's plain call, frame i's per-frame
     kernel call)} on u8 [B, 3, H, W] planes (B, G, R), each returning a
-    tuple of outputs."""
+    tuple of outputs. Kernel 6 reads the quadrant's windows of the planes
+    and of their luma, kernel 7 their dilated marker mask's bits (from the
+    plain versions), at budget MASK_BUDGET."""
     from smh_tpu_torch.ops import kernels as K
 
     b8, g8, r8 = planes[:, 0], planes[:, 1], planes[:, 2]
+    h, w = r8.shape[-2:]
+    luma = K.classify_luma_planes_plain(r8, g8, b8)[1]
+    bits = K.fused_mask_bits_plain(r8, g8, b8)
+    q = (Ellipsis, slice(h // 2, 2 * (h // 2)), slice(w // 2, 2 * (w // 2)))
+    brq = [p[q] for p in (r8, g8, b8, luma)]
     return {
         "classify_luma": (lambda: K.classify_luma_planes(r8, g8, b8),
                           lambda i: K.classify_luma_planes_plain(r8[i], g8[i], b8[i]),
@@ -1743,6 +2036,12 @@ def batch_calls(planes: torch.Tensor) -> dict:
         "quiet_walk": (lambda: (K.minimap_rect_planes(b8, g8, r8),),
                        lambda i: (K.minimap_rect_planes_plain(b8[i : i + 1], g8[i : i + 1], r8[i : i + 1])[0],),
                        lambda i: (K.minimap_rect_planes(b8[i : i + 1], g8[i : i + 1], r8[i : i + 1])[0],)),
+        "brq_preprocess": (lambda: tuple(K.brq_preprocess(*brq).values()),
+                           lambda i: tuple(K.brq_preprocess_plain(*(p[i] for p in brq)).values()),
+                           lambda i: tuple(K.brq_preprocess(*(p[i] for p in brq)).values())),
+        "mask_words": (lambda: (K.mask_bbox_sparse(bits, w, MASK_BUDGET),),
+                       lambda i: (K.mask_bbox_sparse_plain(bits[i], w, MASK_BUDGET),),
+                       lambda i: (K.mask_bbox_sparse(bits[i], w, MASK_BUDGET),)),
     }
 
 
@@ -1758,9 +2057,9 @@ def check_batched(name: str, calls: tuple, bsz: int, label: str) -> None:
 
 
 def phase_batch_kernels(dev: torch.device) -> dict:
-    """Kernels 1-3 over a whole batch in one launch, against their plain
-    versions and the per-frame kernels, frame by frame; their device time
-    per call and per frame."""
+    """Kernels 1-3, 6 and 7 over a whole batch in one launch, against their
+    plain versions and the per-frame kernels, frame by frame; their device
+    time per call and per frame."""
     from smh_tpu_torch import consts as C
 
     rng = np.random.default_rng(3)
@@ -1780,9 +2079,7 @@ def phase_batch_kernels(dev: torch.device) -> dict:
                     prof = device_profile(calls[0])
                     us, per_call, other = prof["kernel_us"], prof["kernels"], prof["launches"] - prof["kernels"]
                     require(per_call == 1.0, f"batched {name} made {per_call} kernel launches per call at {label}")
-                    out_bytes = {"classify_luma": 2 * n_px, "fused_mask": gm.map_h * ((gm.map_w + 7) // 8),
-                                 "quiet_walk": 16}[name]
-                    b = bound(bsz * (3 * n_px + out_bytes), 0.0)
+                    b = bound(bsz * kernel_bytes(name, gm.map_h, gm.map_w), 0.0)
                     table.setdefault(name, {}).setdefault(f"{gm.map_h}x{gm.map_w}", {})[bsz] = {
                         "us": us, "us_per_frame": us / bsz, "bound_us": b["bound_ms"] * 1e3,
                         "ms": cuda_ms(calls[0]), "other_rows": other,
@@ -1791,7 +2088,7 @@ def phase_batch_kernels(dev: torch.device) -> dict:
                           f"kernel, 1 kernel launch per call (+{other:.0f} memset/copy rows), device {us:.2f} us "
                           f"per call = {us / bsz:.2f} us per frame, bound {b['bound_ms'] * 1e3:.2f} us (bytes)",
                           flush=True)
-            print(f"batch kernels: {gm.map_h}x{gm.map_w} B={bsz}: the three batched entries bit-equal at frame "
+            print(f"batch kernels: {gm.map_h}x{gm.map_w} B={bsz}: the {len(table)} batched entries bit-equal at frame "
                   f"strides {padded} and {padded + 1}", flush=True)
     # H * W % 4 != 0: the batched classify writes each frame's outputs into
     # a row padded to 4 bytes, and returns views of them.
@@ -1802,7 +2099,7 @@ def phase_batch_kernels(dev: torch.device) -> dict:
     label = f"{mh}x{mw} B={bsz} frame stride {host.shape[1]}"
     for name, calls in batch_calls(rows[:, : 3 * mh * mw].view(bsz, 3, mh, mw)).items():
         check_batched(name, calls, bsz, label)
-    print(f"batch kernels: {label}: the three batched entries bit-equal (classify's outputs in padded rows)",
+    print(f"batch kernels: {label}: the batched entries bit-equal (classify's outputs in padded rows)",
           flush=True)
     print("batch kernels: " + json.dumps(table), flush=True)
     return table
@@ -1871,7 +2168,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         for name, n in run.items():
             launches[name] += n
         require(all(run[n] == len(batches) for n in K.FUSED_PASS), f"{label}: not one launch per batch: {run}")
-        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 and 5 per batch (profiler) {prof}")
+        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 and 5-7 per batch (profiler) {prof}")
         require(stats["full_batches"] == 1 and stats["delta_batches"] == len(batches) - 1,
                 f"{label}: not a full batch, then deltas: {stats}")
         for bi, (batch, res) in enumerate(zip(batches, results)):
@@ -1884,7 +2181,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         print(f"batch: {label} over {len(batches)} batches of the drag: results == the per-frame VisionState "
               f"(== the oracle within 1.5 px on frame 0), stream(depth=2) == process(); "
               f"{prof['kernels']:.0f} kernel launches + {prof['launches'] - prof['kernels']:.0f} memset/copy rows "
-              f"per delta batch (profiler; kernels 1-3 and the scales read {prof['named']}), device "
+              f"per delta batch (profiler; each kernel of the pass {prof['named']}), device "
               f"{prof['kernel_us'] / 1e3:.3f} ms per batch; H2D bytes per batch {h2d} (full, then deltas); "
               f"process() {fps_process:.2f} frames/s, stream() {fps_stream:.2f} frames/s; stats t_* "
               f"{{{', '.join(f'{k} {v:.1f}' for k, v in stats.items() if k.startswith('t_'))}}} on {card}; "
@@ -1986,7 +2283,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
     the CPU (the kernels' plain versions); full_step's winners against the
     per-frame march; the dry run's full_step check on random frames;
     BatchPipeline(batch=8) on dp = 4 against one device over the drag,
-    kernels 1-3 and 5 at dp launches per batch. Returns the kernel launches of
+    kernels 1-3 and 5-7 at dp launches per batch. Returns the kernel launches of
     the driven calls."""
     from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
     from smh_tpu_torch.ops import kernels as K
@@ -2045,7 +2342,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
                         f"{label}: not a full upload per batch: {stats}")
                 prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS, tries=6)
                 require(prof["named"] == {n: 4.0 for n in K.FUSED_PASS},
-                        f"{label}: kernels 1-3 and 5 per batch (profiler) {prof['named']}, not 4 each")
+                        f"{label}: kernels 1-3 and 5-7 per batch (profiler) {prof['named']}, not 4 each")
             t1 = time.perf_counter()
             for b in batches:
                 bp.process(b)
@@ -2055,7 +2352,7 @@ def phase_mesh(dev: torch.device, card: str, single_b8: dict) -> dict:
         require(results[label] == results["one device"], f"BatchPipeline {label} != one device")
     secs["batch pipeline"] = time.perf_counter() - t0
     print(f"mesh: BatchPipeline(batch={BATCH}) at {w}x{h} over {len(batches)} batches of the drag on {dev}: results of "
-          f"dp=4 == one device; kernels 1-3 and 5 per batch (profiler) {prof['named']}; process() frames/s "
+          f"dp=4 == one device; kernels 1-3 and 5-7 per batch (profiler) {prof['named']}; process() frames/s "
           + ", ".join(f"{k} {v:.2f}" for k, v in rates.items())
           + f" (one card: the cost of the split, not scaling) on {card}; seconds "
           + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), flush=True)
@@ -2079,11 +2376,12 @@ def phase_resolutions(dev: torch.device, card: str) -> dict:
     """One VisionState on the card resizing mid-stream through
     testing.RESOLUTIONS.
     At each size: markers, ratio and minimap == the oracle's (ends within
-    1.5 px), hostpack and scalespack bytes == a CPU state's, kernels 1-3
-    launched by the pass; lsd_engine="cuda" == the oracle at
-    CUDA_ENGINE_SIZES; at each map shape kernels 1-3 bit-equal to their
-    plain versions per frame (the frame's map ROI) and at B=3 (random rows),
-    their device us per frame beside their bound."""
+    1.5 px), hostpack and scalespack bytes == a CPU state's, every kernel of
+    the pass launched by it; lsd_engine="cuda" == the oracle at
+    CUDA_ENGINE_SIZES; at each map shape kernels 1-3, 6 and 7 bit-equal to
+    their plain versions per frame (the frame's map ROI, its quadrant and
+    its mask bits) and at B=3 (random rows), their device us per frame
+    beside their bound."""
     from smh_tpu_torch import consts as C
     from smh_tpu_torch import testing
     from smh_tpu_torch.ops import kernels as K
@@ -2145,19 +2443,18 @@ def phase_resolutions(dev: torch.device, card: str) -> dict:
             rows = torch.from_numpy(host).to(dev)
             for name, c in batch_calls(rows[:, : 3 * n_px].view(3, 3, gm.map_h, gm.map_w)).items():
                 check_batched(name, c, 3, f"{shape} B=3 frame stride {padded}")
-            prof = device_profile(lambda: [c[2](0) for c in calls.values()], names=KERNELS_1_3)
+            prof = device_profile(lambda: [c[2](0) for c in calls.values()], names=EVERY_PASS)
             share = mask_share(np.ascontiguousarray(roi[..., ::-1]))
             ops = {name: (base + hsv_ops * share) * n_px for name, (base, hsv_ops) in CLASSIFY_OPS.items()}
-            bounds = {
-                "classify_luma": bound(5 * n_px, ops["classify_luma"]),
-                "fused_mask": bound(3 * n_px + gm.map_h * ((gm.map_w + 7) // 8), ops["fused_mask"]),
-                "quiet_walk": bound(3 * n_px + 16, OPS_PER_PX["quiet_walk"] * n_px),
-            }
+            ops["quiet_walk"] = OPS_PER_PX["quiet_walk"] * n_px
+            ops["brq_preprocess"] = OPS_PER_PX["brq_preprocess"] * (gm.map_h // 2) * (gm.map_w // 2)
+            ops["mask_words"] = OPS_PER_PX["mask_words"] * gm.map_h * (((gm.map_w + 7) // 8 + 3) // 4)
+            bounds = {name: bound(kernel_bytes(name, gm.map_h, gm.map_w), ops[name]) for name in EVERY_PASS}
             table[shape] = {name: {"us": prof["named_us"][name], "bound_us": b["bound_ms"] * 1e3, "bound_by": b["bound_by"]}
                             for name, b in bounds.items()}
             print(f"resolutions: {label}: markers {got[0]}, ratio {got[1]:.6f}, minimap {got[2]} == oracle; hostpack "
-                  f"{pack_gpu.size} B == CPU path{engine}; kernels 1-3 bit-equal to their plain versions per frame "
-                  f"and at B=3; device us per frame on the frame's map ROI ({100 * share:.2f} % of pixels past the "
+                  f"{pack_gpu.size} B == CPU path{engine}; kernels 1-3, 6 and 7 bit-equal to their plain "
+                  f"versions per frame and at B=3; device us per frame on the frame's map ROI ({100 * share:.2f} % of pixels past the "
                   f"max-byte mask; kernel rows; bound) "
                   + ", ".join(f"{n} {t['us']:.2f} ({t['bound_us']:.2f}, {t['bound_by']})" for n, t in table[shape].items())
                   + f" on {card}", flush=True)
@@ -2209,7 +2506,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     secs = time.perf_counter() - t0
     batches = -(-len(frames) // 8)
     require(n == len(rows) == len(frames), f"analyze_video: {n} frames, {len(rows)} rows")
-    require(all(K.LAUNCHES[k] == batches for k in K.FUSED_PASS), f"analyze_video: kernels 1-3 and 5 per batch {K.LAUNCHES}")
+    require(all(K.LAUNCHES[k] == batches for k in K.FUSED_PASS), f"analyze_video: kernels 1-3 and 5-7 per batch {K.LAUNCHES}")
     for r in rows:
         g = golden["frames"][r["frame"] % golden["n"]]
         require(r["sleeping"] == g["sleeping"], f"analyze_video frame {r['frame']}: sleeping {r['sleeping']}")
@@ -2227,7 +2524,7 @@ def phase_tools(dev: torch.device, card: str) -> dict:
     drag = [testing.resolution_frame(w, h, i) for i in range(8)]
     rows = []
     _count(launches, lambda: analyze_video.analyze(drag, 8, SmhOcrEngine(), dev, emit=rows.append))
-    require(all(K.LAUNCHES[k] == 1 for k in K.FUSED_PASS), f"analyze_video {w}x{h}: kernels 1-3 and 5 {K.LAUNCHES}")
+    require(all(K.LAUNCHES[k] == 1 for k in K.FUSED_PASS), f"analyze_video {w}x{h}: kernels 1-3 and 5-7 {K.LAUNCHES}")
     state = new_state(dev)
     try:
         want = []
@@ -2448,6 +2745,8 @@ def main() -> int:
     kernels = phase_kernels(dev)
     kernels["ray_march"] = phase_ray_march(dev)
     kernels["scales_read"] = timed_phase("scales_read", phase_scales_read, dev)
+    kernels["brq_preprocess"] = timed_phase("brq_preprocess", phase_brq_preprocess, dev)
+    kernels["mask_words"] = timed_phase("mask_words", phase_mask_words, dev)
     # Before the traces of thousands of launches (phase_timing, phase_batch):
     # late in a run, short traces lost most of their records four times
     # running (device_profile).

@@ -65,6 +65,14 @@ _SIGNATURES = {
     # (text, text_stride, sbool, sbool_stride (bytes between frames), tpl, T,
     #  H, W, B, budget, out, stream)
     "smh_scales_read": [_VP, _I64, _VP, _I64, _VP, _I, _I, _I, _I, _I, _VP, _VP],
+    # (r, g, b, pitch, stride, luma, luma_pitch, luma_stride, spack,
+    #  spack_stride, text, sbool, plane_stride, scheck, h, w, B, row0,
+    #  total_h, mono, bright, edge_mono, edge_bright, text_threshold, stream);
+    # pitches and strides in bytes
+    "smh_brq_preprocess": [_VP, _VP, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
+    # (bits, frame_stride (bytes), H, W, B, budget, out, stream)
+    "smh_mask_words": [_VP, _I64, _I, _I, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()

@@ -1,24 +1,26 @@
-"""The fused pass's three hand-written CUDA kernels, their wrappers, their
-plain PyTorch twins, and the launch counts of all five of the port's kernels
-(the fourth, the ray march, lives in ops/lsd.py; the fifth, the scales
-read, in ops/scales_device.py).
+"""The fused pass's hand-written CUDA kernels (all but the ray march and
+the scales read), their wrappers, their plain PyTorch twins, and the launch
+counts of all seven of the port's kernels (the fourth, the ray march, lives
+in ops/lsd.py; the fifth, the scales read, in ops/scales_device.py).
 
-Counterpart of smh_tpu/ops/pallas_kernels.py. Each wrapper takes the plain
+Counterpart of smh_tpu/ops/pallas_kernels.py, and of the two regions of
+smh_tpu's jitted fused pass (smh_tpu/ops/pipeline.py::_analyze_flat_core)
+that kernels 6 and 7 take. Each wrapper takes the plain
 version for tensors on the CPU, launches its kernel for tensors on a CUDA
 device, and raises for anything else: there is no fallback from the kernel
 to the plain version and no switch that bypasses the kernel. `LAUNCHES`
 counts kernel launches (and nothing else), so a run can show that the main
 path went through the kernels.
 
-Each wrapper also takes a batch: [B, H, W] planes whose frames are
-contiguous and start stride(0) >= H * W bytes apart (the batched pass cuts
-them from the rows of one [B, padded] buffer with no copy). A batch is ONE
+Each wrapper also takes a batch: [B, H, W] planes whose frames start
+stride(0) bytes apart (the batched pass cuts them from the rows of one
+[B, padded] buffer with no copy). A batch is ONE
 launch over a grid with a batch axis, counted once: the counterpart of the
 vmapped pallas_call of smh_tpu's batch pipeline. Each frame's result is the
 per-frame kernel's; the plain versions are shape-generic, so on a batch
 they compute each frame's plain result.
 
-* classify_luma_planes -> csrc/classify_luma.cu
+* classify_luma_planes -> csrc/classify_luma.cu (kernel 1)
   Replaces pallas_kernels.py::_classify_luma_kernel
   (classify_luma_pallas_planes). 3 bytes read + 2 written per pixel, but
   bound on the card by the launch and the blocks' ramp, and where pixels
@@ -31,7 +33,7 @@ they compute each frame's plain result.
   once (no FMA contraction) and every division correctly rounded, so it is
   bit-exact with the oracle. The tables are built once per device
   (_classify_tables).
-* minimap_rect_planes -> csrc/quiet_walk.cu
+* minimap_rect_planes -> csrc/quiet_walk.cu (kernel 2)
   Replaces pallas_kernels.py::_quiet_walk_kernel_factory and the walk tail
   of _rect_pallas_batched (minimap_rect_pallas_planes). Bound by bytes (the
   three planes read once) and, at map sizes, by launch latency. ONE C call
@@ -40,7 +42,7 @@ they compute each frame's plain result.
   and the last block of each batch element runs the four walks as
   block-wide index reductions. No PyTorch op runs between the kernel and
   the result.
-* fused_mask_bits -> csrc/fused_mask.cu
+* fused_mask_bits -> csrc/fused_mask.cu (kernel 3)
   Replaces pallas_kernels.py::_fused_mask_kernel + _fused_mask_kernel_hbm
   (fused_mask_bits_pallas). 3 bytes read per pixel, 1/8 written, but bound
   on the card by the launch and each block's chain of dependent phases, and
@@ -52,13 +54,30 @@ they compute each frame's plain result.
   reaches device memory. Pad bits are zero, as in the XLA path (the Pallas
   kernel sets them where a marker touches the last column of a ragged
   row).
-* scales_device.scales_records -> csrc/scales_read.cu
+* scales_device.scales_records -> csrc/scales_read.cu (kernel 5)
   Replaces smh_tpu/ops/scales_device.py::scales_records (XLA ops: a
   lax.scan over glyph slots and vmaps over bands, word slots and frames;
   plain twin scales_device.scales_records_plain). Two planes read, a
   1,168 B record written per frame, but bound by the latency of its chain
-  of dependent phases (bands, glyph runs, windows, words, bar rows): one
-  block per frame, so a batch is one launch.
+  of dependent phases (bands, glyph runs, windows, words, bar rows): a
+  cluster of 8 blocks per frame, so a batch is one launch.
+* brq_preprocess -> csrc/brq_preprocess.cu (kernel 6)
+  Replaces the bottom-right quadrant's text preprocess of smh_tpu's fused
+  pass (XLA ops): _ocr_preprocess_planes with its R = 3 box dilate, the
+  scales binarize luma != 0 and its pack_bits, the two _weighted_checks of
+  _pack_outputs and the text mask ocr_img < OCR_BINARY_THRESHOLD. Reads
+  the quadrant's R, G, B and luma (kernel 1's) in place; writes ocr_img
+  and the scales bits straight into the scalespack, the text and scales
+  planes that kernel 5 reads, and the four u32 checksums. 7.125 B/px, but
+  bound by the launch and one tile's chain (loads, ballots, two barriers).
+* mask_bbox_sparse -> csrc/mask_words.cu (kernel 7)
+  Replaces _mask_bbox and _sparse_words (_pack_words32 + the "search"
+  engine of _compact_words) of smh_tpu's _pack_outputs (XLA ops), which
+  read the dilated marker mask: from kernel 3's bits it writes the bbox,
+  the crop origin 0, the total count of non-zero u32 words and the first
+  `budget` of them (index and word), as the hostpack's i32 bytes. Bound by
+  the launch and a cluster barrier: a cluster of 8 blocks per frame counts
+  its words, scans the counts, exchanges the block totals and writes.
 """
 
 from __future__ import annotations
@@ -70,13 +89,17 @@ import numpy as np
 import torch
 
 from .. import _build, consts as C
+from ..ocr.engine import OCR_BINARY_THRESHOLD
 
-LAUNCHES = {"classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0}
+LAUNCHES = {
+    "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
+    "brq_preprocess": 0, "mask_words": 0,
+}
 # The kernels every smhocr fused pass launches (ray_march runs on the
 # lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march; the
 # scales read runs where the pass reads the scales on the device, i.e.
 # under smhocr: scales_inline="device").
-FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "scales_read")
+FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "mask_words", "scales_read")
 
 # Tile of the quiet-walk kernel (TH rows x TW pixels in csrc/quiet_walk.cu):
 # the seams the tests and the chip smoke place their shapes around.
@@ -86,6 +109,16 @@ QUIET_TILE_W = 64
 # csrc/fused_mask.cu).
 FUSED_TILE_H = 16
 FUSED_TILE_W = 128
+# Kernel 7 (csrc/mask_words.cu): a cluster of MASK_CLUSTER blocks of
+# MASK_THREADS threads per frame, each block at most MASK_TILES tiles of a
+# word a thread: the most u32 words a frame's bit plane may hold.
+MASK_CLUSTER = 8
+MASK_THREADS = 1024
+MASK_TILES = 64
+MASK_WORDS_MAX = MASK_CLUSTER * MASK_THREADS * MASK_TILES
+# The i32 lanes of kernel 7's output before its idx and dat: y0, y1, x0,
+# x1, the crop origin (0, 0) and nz.
+MASK_META = 7
 
 
 def reset_launches() -> None:
@@ -306,3 +339,167 @@ def fused_mask_bits(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor) -> tor
     _build.check(code, "smh_fused_mask")
     LAUNCHES["fused_mask"] += 1
     return bits
+
+
+def _u32_as_i32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values < 2^32 -> i32 with the same 32 bits (the u32 bytes the
+    hostpack carries, in a dtype PyTorch computes with)."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def _strided_planes(planes) -> tuple:
+    """(row pitch, frame stride) in bytes of u8 [h, w] or [B, h, w] planes
+    that may be windows of larger planes (each row contiguous): planes
+    that share them, or ValueError."""
+    first = planes[0]
+    if any(p.stride(-1) != 1 for p in planes):
+        raise ValueError("the kernel reads planes whose rows are contiguous")
+    pitches = {p.stride(-2) for p in planes}
+    strides = {p.stride(0) if p.dim() == 3 else 0 for p in planes}
+    if len(pitches) != 1 or len(strides) != 1:
+        raise ValueError(f"the planes differ in row pitch or frame stride: {pitches}, {strides}")
+    pitch, stride = pitches.pop(), strides.pop()
+    h, w = first.shape[-2:]
+    if pitch < w or (first.dim() == 3 and first.shape[0] > 1 and stride < (h - 1) * pitch + w):
+        raise ValueError(f"rows {pitch} bytes apart or frames {stride} apart overlap a {h}x{w} plane")
+    return pitch, stride
+
+
+# -- kernel 6: the quadrant's text preprocess -------------------------------------
+
+
+def _brq_outputs(spack: torch.Tensor, text: torch.Tensor, sbool: torch.Tensor, scheck: torch.Tensor,
+                 h: int, w: int) -> dict:
+    """Kernel 6's outputs as the fused pass reads them: the scalespack
+    [..., h * ceil(w/8) + h * w] (scalespack_layout) and views of its two
+    sections, the u8 0/1 text and scales planes [..., h, w] and the i32
+    [..., 4] checksums."""
+    lead = spack.shape[:-1]
+    nbits = h * ((w + 7) // 8)
+    return {
+        "scalespack": spack,
+        "scales_bits": spack[..., :nbits].view(*lead, h, (w + 7) // 8),
+        "ocr_img": spack[..., nbits:].view(*lead, h, w),
+        "text": text,
+        "sbool": sbool,
+        "scheck": scheck,
+    }
+
+
+def brq_preprocess_plain(r8, g8, b8, luma, row0: int = 0, total_h: int | None = None) -> dict:
+    """Plain PyTorch twin of the quadrant preprocess kernel: the eager
+    composition smh_tpu's fused pass writes -- _ocr_preprocess_planes,
+    pack_bits(luma != 0), the _weighted_checks of the scales bits and of
+    ocr_img, and the text mask -- with brq_preprocess's outputs."""
+    from . import pipeline as opp
+
+    ocr = opp._ocr_preprocess_planes(r8, g8, b8, luma=luma, row0=row0, total_h=total_h)
+    sbool = luma != 0
+    bits = opp.pack_bits(sbool)
+    scheck = torch.cat([opp._weighted_check(bits), opp._weighted_check(ocr)], dim=-1)
+    lead = ocr.shape[:-2]
+    spack = torch.cat([bits.reshape(*lead, -1), ocr.reshape(*lead, -1)], dim=-1)
+    text = (ocr < OCR_BINARY_THRESHOLD).to(torch.uint8)
+    return _brq_outputs(spack, text, sbool.to(torch.uint8), _u32_as_i32(scheck), *ocr.shape[-2:])
+
+
+def brq_preprocess(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor, luma: torch.Tensor,
+                   row0: int = 0, total_h: int | None = None) -> dict:
+    """The bottom-right quadrant's text preprocess. r8, g8, b8, luma: u8
+    [h, w] or [B, h, w] windows of larger planes (rows contiguous; r, g, b
+    sharing a row pitch and a frame stride, luma its own). The planes may
+    be rows row0 .. row0 + h of a quadrant total_h rows high (a mesh block
+    with halos; default: the whole quadrant). Returns {"scalespack" u8
+    [..., h * ceil(w/8) + h * w], "scales_bits" u8 [..., h, ceil(w/8)] and
+    "ocr_img" u8 [..., h, w] (views of the scalespack), "text" and "sbool"
+    u8 0/1 [..., h, w] (ocr_img < OCR_BINARY_THRESHOLD, luma != 0),
+    "scheck" i32 [..., 4] (the u32 sum and weighted sum of the scales bits,
+    then of ocr_img)}; one launch for a batch."""
+    planes = (r8, g8, b8, luma)
+    for p in planes:
+        if p.dtype != torch.uint8 or p.dim() not in (2, 3):
+            raise ValueError(f"expected u8 planes of rank 2 or 3, got {p.dtype} {tuple(p.shape)}")
+        if p.shape != r8.shape or p.device != r8.device:
+            raise ValueError("planes differ in shape or device")
+    h, w = r8.shape[-2:]
+    total_h = h if total_h is None else total_h
+    if r8.numel() == 0 or row0 < 0 or row0 + h > total_h:
+        raise ValueError(f"planes {tuple(r8.shape)} at row {row0} of a quadrant {total_h} rows high")
+    if r8.device.type == "cpu":
+        return brq_preprocess_plain(r8, g8, b8, luma, row0=row0, total_h=total_h)
+    if r8.device.type != "cuda":
+        raise ValueError(f"unsupported device {r8.device}")
+    pitch, stride = _strided_planes((r8, g8, b8))
+    lpitch, lstride = _strided_planes((luma,))
+    lead = r8.shape[:-2]
+    bsz = r8.shape[0] if r8.dim() == 3 else 1
+    bpr = (w + 7) // 8
+    spack = torch.empty((*lead, h * bpr + h * w), dtype=torch.uint8, device=r8.device)
+    planes_out = torch.empty((2, *lead, h, w), dtype=torch.uint8, device=r8.device)
+    scheck = torch.empty((*lead, 4), dtype=torch.int32, device=r8.device)
+    lib = _build.load()
+    with torch.cuda.device(r8.device):
+        code = lib.smh_brq_preprocess(
+            r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), pitch, stride, luma.data_ptr(), lpitch, lstride,
+            spack.data_ptr(), h * bpr + h * w, planes_out[0].data_ptr(), planes_out[1].data_ptr(), h * w,
+            scheck.data_ptr(), h, w, bsz, row0, total_h,
+            C.OCR_PREPROCESS_MONOCHROMATICY_THRESHOLD, C.OCR_PREPROCESS_BRIGHTNESS_THRESHOLD,
+            C.OCR_PREPROCESS_SIMILARITY_EDGE_THRESHOLD, C.OCR_PREPROCESS_BRIGHTNESS_EDGE_THRESHOLD,
+            OCR_BINARY_THRESHOLD, _stream_ptr(r8),
+        )
+    _build.check(code, "smh_brq_preprocess")
+    LAUNCHES["brq_preprocess"] += 1
+    return _brq_outputs(spack, planes_out[0], planes_out[1], scheck, h, w)
+
+
+# -- kernel 7: the marker mask's bbox and sparse words ---------------------------
+
+
+def mask_bbox_sparse_plain(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
+    """Plain PyTorch twin of the mask words kernel: unpack_bits_bool, then
+    smh_tpu's _mask_bbox and _sparse_words, in mask_bbox_sparse's i32
+    layout."""
+    from . import pipeline as opp
+
+    m = opp.unpack_bits_bool(bits, w)
+    y0, y1, x0, x1 = opp._mask_bbox(m)
+    nz, idx, dat = opp._sparse_words(m, budget)
+    zero = torch.zeros_like(y0)
+    meta = torch.stack([y0, y1, x0, x1, zero, zero, nz], dim=-1)
+    return torch.cat([meta.to(torch.int32), idx.to(torch.int32), _u32_as_i32(dat)], dim=-1)
+
+
+def mask_bbox_sparse(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
+    """The dilated marker mask's bbox and sparse words from its bit plane,
+    u8 [H, ceil(w/8)] or [B, H, ceil(w/8)] (kernel 3's lsd_bits; each frame
+    contiguous, the frames any stride(0) apart; bits past column w are
+    read as zero) -> i32 [..., MASK_META + 2 * budget]: y0, y1, x0, x1
+    (end-exclusive; H, 0, w, 0 when empty), 0, 0 (the sparse transport's
+    crop origin), nz (the TOTAL count of non-zero u32 words), then the
+    word index (i * ceil(ceil(w/8) / 4) + j) and the word (its u32 bits) of
+    the first `budget` non-zero words in index order, zero past
+    min(nz, budget): the hostpack's lsd_meta and lsd_nz / lsd_sp_idx /
+    lsd_sp_dat bytes. Budget 0 gives the bbox and nz alone. One launch for
+    a batch."""
+    if bits.dtype != torch.uint8 or bits.dim() not in (2, 3) or bits.shape[-1] != (w + 7) // 8:
+        raise ValueError(f"expected u8 [H, {(w + 7) // 8}] or [B, H, {(w + 7) // 8}] bits, got "
+                         f"{bits.dtype} {tuple(bits.shape)}")
+    if budget < 0 or bits.numel() == 0:
+        raise ValueError(f"budget {budget} for bits {tuple(bits.shape)}")
+    if bits.device.type == "cpu":
+        return mask_bbox_sparse_plain(bits, w, budget)
+    if bits.device.type != "cuda":
+        raise ValueError(f"unsupported device {bits.device}")
+    n_words = bits.shape[-2] * -(-bits.shape[-1] // 4)
+    if n_words > MASK_WORDS_MAX:
+        raise ValueError(f"{n_words} words a frame: the kernel takes at most {MASK_WORDS_MAX}")
+    stride = _frame_stride((bits,))
+    bsz = bits.shape[0] if bits.dim() == 3 else 1
+    out = torch.empty((*bits.shape[:-2], MASK_META + 2 * budget), dtype=torch.int32, device=bits.device)
+    lib = _build.load()
+    with torch.cuda.device(bits.device):
+        code = lib.smh_mask_words(bits.data_ptr(), stride, bits.shape[-2], w, bsz, budget, out.data_ptr(),
+                                  _stream_ptr(bits))
+    _build.check(code, "smh_mask_words")
+    LAUNCHES["mask_words"] += 1
+    return out

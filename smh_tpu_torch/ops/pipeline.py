@@ -4,22 +4,22 @@ Port of smh_tpu/ops/pipeline.py (the `channels=3` plane-major flat upload;
 the LSD mask as a window crop, the full plane or sparse words; the scales
 transports "none", "device", "binary" and "gray", the last two whole or as
 a row band). One call of `analyze_packed_flat` runs the whole device half of
-a frame: marker classify + luma (CUDA kernel 1), the L1 dilate, the dilated
-mask's bit plane (CUDA kernel 3), the OCR preprocess and scales binarize of
-the map's bottom-right quadrant, the minimap rect (CUDA kernel 2), the red
-gate, the on-device scales read (CUDA kernel 5), the mask bbox, the window crop or sparse
-word compaction and the checksums — all packed into ONE u8 hostpack whose
-bytes equal the JAX package's hostpack. `analyze_delta_flat` first rebuilds
+a frame: marker classify + luma (CUDA kernel 1), the dilated marker mask's
+bit plane (CUDA kernel 3), the OCR preprocess, scales binarize, text mask
+and their checksums over the map's bottom-right quadrant (CUDA kernel 6),
+the minimap rect (CUDA kernel 2), the red gate, the on-device scales read
+(CUDA kernel 5), the mask bbox and sparse word compaction (CUDA kernel 7)
+or the window crop, and the ui checksum — all packed into ONE u8 hostpack
+whose bytes equal the JAX package's hostpack. `analyze_delta_flat` first rebuilds
 the frame from a device-resident buffer and the changed 32 B chunks (the
 delta upload). `analyze_map_planar` is the debug re-pass, which also keeps
 the isolated marker pixels and the cropped quadrant.
 
 `analyze_batch_packed_flat` and `analyze_batch_delta_flat` run the same pass
 over B frames at once (smh_tpu's batch throughput path): the building
-blocks below take an optional leading batch dimension, kernels 1-3 run ONCE
-per batch on [B, H, W] planes cut from the rows of the [B, padded] upload,
-and so does the scales read (`scales_records`, CUDA kernel 5: one block
-per frame).
+blocks below take an optional leading batch dimension, and each kernel
+runs ONCE per batch on [B, H, W] planes cut from the rows of the [B,
+padded] upload (kernels 5 and 7: a cluster of blocks per frame).
 
 The window and band origins are device scalars: both are cut by a gather at
 origin + iota (scales_device._window), never by slicing at a host int.
@@ -42,8 +42,6 @@ from __future__ import annotations
 import torch
 
 from .. import consts as C
-from ..ocr.engine import OCR_BINARY_THRESHOLD
-
 from . import hsv, kernels
 from . import scales_device as sd
 
@@ -359,24 +357,23 @@ def _analyze_map_planes(
     with_isolated: bool = False,
 ) -> dict:
     """The fused pass over the map ROI as BGR channel planes ([h, w] each,
-    or [B, h, w] for a batch: kernels 1-3 then run once for all frames).
-    with_isolated adds the debug views' planes: the map with non-marker
-    pixels black and the bottom-right quadrant, both interleaved RGB."""
+    or [B, h, w] for a batch: each kernel then runs once for all frames).
+    The dilated marker mask is kernel 3's bit plane "lsd_bits" (no bool
+    plane: unpack_bits_bool makes one where a consumer reads it). with_ocr
+    adds kernel 6's outputs over the bottom-right quadrant ("scalespack",
+    "scales_bits", "ocr_img", "text", "sbool", "scheck"). with_isolated adds the debug views' planes: the map
+    with non-marker pixels black and the bottom-right quadrant, both
+    interleaved RGB."""
     map_h, map_w = b8.shape[-2:]
     marker_u8, luma = kernels.classify_luma_planes(r8, g8, b8)
-    marker = marker_u8 != 0
 
     # ui_map: grayscale travels as the luma plane; colour re-interleaves.
     ui = luma if grayscale else torch.stack([r8, g8, b8], dim=-1)
     ui_flat = luma if grayscale else r8.to(I32) + g8.to(I32) + b8.to(I32)
 
-    # lsd_bool feeds the bbox and the sparse words; the bit plane comes from
-    # the fused mask kernel (the same bytes as pack_bits(lsd_bool)).
-    lsd_bool = _dilate_l1_radius1_bool(marker)
     out = {
         "ui": ui,
         "ui_check": _weighted_check(ui_flat),
-        "lsd_bool": lsd_bool,
         "lsd_bits": kernels.fused_mask_bits(r8, g8, b8),
     }
     if with_ocr:
@@ -385,11 +382,9 @@ def _analyze_map_planes(
         def brq(p):
             return p[..., brq_h : brq_h + brq_h, brq_w : brq_w + brq_w]
 
-        brq_luma = brq(luma)
-        scales_bool = brq_luma != 0
-        out["ocr_img"] = _ocr_preprocess_planes(brq(r8), brq(g8), brq(b8), luma=brq_luma)
-        out["scales_bool"] = scales_bool
-        out["scales_bits"] = pack_bits(scales_bool)
+        # The quadrant's windows of the planes and of kernel 1's luma, read
+        # in place by kernel 6.
+        out.update(kernels.brq_preprocess(brq(r8), brq(g8), brq(b8), brq(luma)))
     if with_quiet:
         if b8.dim() == 3:
             out["minimap_rect"] = kernels.minimap_rect_planes(b8, g8, r8)
@@ -398,7 +393,7 @@ def _analyze_map_planes(
     if with_isolated:
         brq_h, brq_w = map_h // 2, map_w // 2
         rgb = torch.stack([r8, g8, b8], dim=-1)
-        out["isolated_map"] = torch.where(marker[..., None], rgb, torch.zeros_like(rgb))
+        out["isolated_map"] = torch.where(marker_u8[..., None] != 0, rgb, torch.zeros_like(rgb))
         out["cropped_brq"] = rgb[..., brq_h : brq_h + brq_h, brq_w : brq_w + brq_w, :]
     return out
 
@@ -413,6 +408,7 @@ def _row_band(plane: torch.Tensor, r0: torch.Tensor, rows: int) -> torch.Tensor:
 def _pack_outputs(
     out: dict,
     red: torch.Tensor,
+    map_w: int,
     with_ocr: bool,
     with_quiet: bool,
     scales_inline: str = "none",
@@ -425,35 +421,38 @@ def _pack_outputs(
     """Pack every detection-path output into ONE u8 hostpack (layout:
     hostpack_layout with the same flags). For a batch (outputs with a
     leading [B] dimension) the hostpacks are the rows of a [B, bytes]
-    tensor, and the scales read runs frame by frame."""
-    lsd_bool = out["lsd_bool"]
-    *lead, map_h, map_w = lsd_bool.shape
+    tensor. Kernel 7 reads kernel 3's bits of the map_w-wide mask once for
+    its bbox (and, with a sparse budget, its sparse words), in the
+    hostpack's i32 bytes; the scalespack is kernel 6's buffer."""
+    lsd_bits = out["lsd_bits"]
+    *lead, map_h, _ = lsd_bits.shape
     lead = tuple(lead)
     crop_h = map_h if crop_h is None else crop_h
     crop_w = map_w if crop_w is None else crop_w
-    y0, y1, x0, x1 = _mask_bbox(lsd_bool)
+    # [..., 7 + 2 budget] i32: bbox, crop origin 0, nz, idx, dat
+    words = kernels.mask_bbox_sparse(lsd_bits, map_w, sparse_budget or 0)
+    word_bytes = words.view(torch.uint8)
     if sparse_budget is not None or (crop_h, crop_w) == (map_h, map_w):
         # Sparse words or the full plane: the crop origin is the plane
         # origin, and the full plane's bits are kernel 3's.
-        cy0 = cx0 = torch.zeros(lead, dtype=I64, device=lsd_bool.device)
-        crop_bits = out["lsd_bits"]
+        meta = word_bytes[..., :24]
+        crop_bits = lsd_bits
     else:
         # Window crop at the bbox less the margin, clamped into the plane.
         # The origin is a device scalar and not byte aligned, so the window
         # is gathered from the bool plane and packed afresh.
         margin = int(LSD_CROP_MARGIN)
-        cy0 = torch.clamp(y0 - margin, 0, map_h - crop_h)
-        cx0 = torch.clamp(x0 - margin, 0, map_w - crop_w)
-        crop_bits = pack_bits(_window_at(lsd_bool, cy0, cx0, crop_h, crop_w))
-    meta = torch.stack([y0, y1, x0, x1, cy0, cx0], dim=-1).to(I32)
-    parts = [_bytes(red.reshape(*lead, 1), lead), _u32_bytes(out["ui_check"], lead), _bytes(meta, lead)]
+        cy0 = torch.clamp(words[..., 0] - margin, 0, map_h - crop_h)
+        cx0 = torch.clamp(words[..., 2] - margin, 0, map_w - crop_w)
+        crop_bits = pack_bits(_window_at(unpack_bits_bool(lsd_bits, map_w), cy0, cx0, crop_h, crop_w))
+        meta = _bytes(torch.cat([words[..., :4], torch.stack([cy0, cx0], dim=-1)], dim=-1), lead)
+    parts = [_bytes(red.reshape(*lead, 1), lead), _u32_bytes(out["ui_check"], lead), meta]
     banded = with_ocr and scales_inline in ("binary", "gray") and scales_band is not None
     if banded and lead:
         raise ValueError("the scales row band is per frame")
     if with_ocr:
-        scheck = torch.cat([_weighted_check(out["scales_bits"]), _weighted_check(out["ocr_img"])], dim=-1)
-        parts.append(_u32_bytes(scheck, lead))
-        keep = out["ocr_img"] < OCR_BINARY_THRESHOLD  # the text mask
+        parts.append(_bytes(out["scheck"], lead))
+        keep = out["text"].view(torch.bool)  # the text mask, ocr_img < OCR_BINARY_THRESHOLD
         if banded:
             # OCR text-row band: every text pixel lies in the keep mask's row
             # bbox and the bar scan reads at most scales_scan_budget rows
@@ -476,16 +475,14 @@ def _pack_outputs(
         elif scales_inline == "device":
             if templates is None:
                 raise ValueError('scales_inline="device" needs the template tensor')
-            rec = sd.scales_records(keep, out["scales_bool"], templates)  # one launch for the batch
+            rec = sd.scales_records(out["text"], out["sbool"], templates)  # one launch for the batch
             parts.append(_bytes(rec, lead))
         elif scales_inline != "none":
             raise ValueError(f"unsupported scales_inline {scales_inline!r}")
     if with_quiet:
         parts.append(_bytes(out["minimap_rect"], lead))
     if sparse_budget is not None:
-        nz, sp_idx, sp_dat = _sparse_words(lsd_bool, sparse_budget)
-        parts += [_bytes(nz.to(I32).reshape(*lead, 1), lead), _bytes(sp_idx.to(I32), lead),
-                  _u32_bytes(sp_dat, lead)]
+        parts.append(word_bytes[..., 24:])  # nz, idx, dat: the hostpack's order
     else:
         parts.append(crop_bits.reshape(*lead, -1))
     res = {
@@ -495,10 +492,9 @@ def _pack_outputs(
     }
     if with_ocr and (scales_inline in ("none", "device") or banded):
         # The lazy transport's payload, and the fallback of the band (a miss)
-        # and of the device read (overflow with nothing trusted).
-        res["scalespack"] = torch.cat(
-            [out["scales_bits"].reshape(*lead, -1), out["ocr_img"].reshape(*lead, -1)], dim=-1
-        )
+        # and of the device read (overflow with nothing trusted): kernel 6
+        # wrote the scales bits and ocr_img into it.
+        res["scalespack"] = out["scalespack"]
     return res
 
 
@@ -533,7 +529,7 @@ def analyze_packed_flat(
         with_quiet=with_quiet,
     )
     return _pack_outputs(
-        out, _red_gate_roi(btn), with_ocr, with_quiet, scales_inline,
+        out, _red_gate_roi(btn), map_w, with_ocr, with_quiet, scales_inline,
         sparse_budget=sparse_budget, templates=templates, crop_h=crop_h,
         crop_w=crop_w, scales_band=scales_band,
     )
@@ -582,10 +578,11 @@ def analyze_batch_packed_flat(
     (each laid out as analyze_packed_flat's) -> {"hostpack" [B, bytes],
     "lsd_bits" [B, map_h, ceil(map_w/8)], "scalespack" [B, bytes]?,
     "resident"?}. Frame b's planes are views of row b (no layout copy), so
-    kernels 1-3 run once for the batch on [B, H, W] planes that lie a row
-    apart, and the scales read (kernel 5) once on the batch's [B, h, w]
-    quadrants. `resident_row` returns a
-    copy of that row as "resident": it seeds the batch delta chain. The
+    each kernel runs once for the batch: kernels 1-3 on [B, H, W] planes
+    that lie a row apart, kernels 6 and 5 on the batch's [B, h, w]
+    quadrants, kernel 7 on the [B, H, ceil(W/8)] bits. `resident_row`
+    returns a copy of that row as "resident": it seeds the batch delta
+    chain. The
     JAX counterpart is smh_tpu.ops.pipeline._analyze_batch_packed(...,
     channels=3); each row's outputs equal analyze_packed_flat's."""
     if rois.dtype != torch.uint8 or rois.dim() != 2:
@@ -596,7 +593,7 @@ def analyze_batch_packed_flat(
     btn = rois[:, map_bytes : map_bytes + btn_h * btn_w * 3].view(bsz, btn_h, btn_w, 3)
     out = _analyze_map_planes(planes[:, 0], planes[:, 1], planes[:, 2], grayscale, with_ocr=with_ocr)
     packed = _pack_outputs(
-        out, _red_gate_roi(btn), with_ocr, True, scales_inline, sparse_budget=sparse_budget,
+        out, _red_gate_roi(btn), map_w, with_ocr, True, scales_inline, sparse_budget=sparse_budget,
         templates=templates, crop_h=crop_h, crop_w=crop_w,
     )
     res = {"hostpack": packed["hostpack"], "lsd_bits": packed["lsd_bits"]}
@@ -650,14 +647,19 @@ def analyze_map(map_bgra: torch.Tensor, grayscale: bool = True, with_isolated: b
     """The fused pass over an INTERLEAVED map ROI, u8 [h, w, 4] BGRA or
     [h, w, 3] BGR on its device (the alpha byte is never read): the
     outputs of smh_tpu's `_analyze_map` with its defaults (the XLA quiet
-    mask, no Pallas) -- `_analyze_map_planes`' plus "quiet_bool" and
-    "lsd_mask" (u8 0/255, the march's input). The ROI is split into
+    mask, no Pallas) -- `_analyze_map_planes`' (less kernel 6's hostpack
+    outputs) plus "lsd_bool" (unpacked from kernel 3's bits), "quiet_bool"
+    and "lsd_mask" (u8 0/255, the march's input). The ROI is split into
     contiguous planes first: the kernels read contiguous planes. Not a
     transport (the production path uploads planes): the whole-frame entry
     of the multi-device path and its checks. The JAX counterpart is
     smh_tpu.ops.pipeline.analyze_map."""
     b8, g8, r8 = (map_bgra[..., c].contiguous() for c in range(3))
     out = _analyze_map_planes(b8, g8, r8, grayscale, with_quiet=False, with_isolated=with_isolated)
+    for key in ("scalespack", "text", "scheck"):  # the hostpack's, not _analyze_map's
+        del out[key]
+    out["scales_bool"] = out.pop("sbool").view(torch.bool)
+    out["lsd_bool"] = unpack_bits_bool(out["lsd_bits"], map_bgra.shape[1])
     out["lsd_mask"] = mask_u8(out["lsd_bool"])
     out["quiet_bool"] = _edgy_quiet_planes(b8, g8, r8)
     return out
@@ -683,12 +685,24 @@ def mask_u8(lsd_bool: torch.Tensor) -> torch.Tensor:
 
 
 def unpack_bits_device(packed: torch.Tensor, w: int) -> torch.Tensor:
-    """Device-side inverse of pack_bits -> 0/255 u8 [h, w]: the u8 mask the
-    device ray march samples, rebuilt from the bit plane."""
-    h, row = packed.shape
+    """Device-side inverse of pack_bits -> 0/255 u8 [..., h, w]: the u8 mask
+    the device ray march samples, rebuilt from the bit plane."""
+    return _unpack_bits(packed, w) * 255
+
+
+def unpack_bits_bool(packed: torch.Tensor, w: int) -> torch.Tensor:
+    """Device-side inverse of pack_bits -> bool [..., h, w]: the dilated
+    marker mask lsd_bool, where a consumer reads a bool plane (the window
+    crop, analyze_map, the mesh blocks), from kernel 3's bits."""
+    return _unpack_bits(packed, w).view(torch.bool)
+
+
+def _unpack_bits(packed: torch.Tensor, w: int) -> torch.Tensor:
+    """u8 0/1 [..., h, w] of the MSB-first bit plane u8 [..., h, row]."""
+    *lead, h, row = packed.shape
     shifts = 7 - torch.arange(8, dtype=torch.uint8, device=packed.device)
-    bits = (packed[:, :, None] >> shifts) & 1
-    return bits.reshape(h, row * 8)[:, :w] * 255
+    bits = (packed[..., None] >> shifts) & 1
+    return bits.reshape(*lead, h, row * 8)[..., :w]
 
 
 # ---------------------------------------------------------------------------

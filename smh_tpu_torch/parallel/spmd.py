@@ -9,8 +9,9 @@ smh_tpu writes this as one jitted function with sharding annotations, and
 XLA's partitioner inserts the halo exchanges at the "sp" seams. Here one
 Python process drives the devices of a `Mesh` (its entries may repeat a
 device): each (dp, sp) block of map rows is uploaded with the HALO rows its
-stencils read across a seam, runs kernels 1 and 3 once for the block's
-frames on its device, and has the halos cropped off; the blocks of a dp row
+stencils read across a seam, runs kernels 1 and 3 (and kernel 6 on its
+rows of the bottom-right quadrant) once for the block's frames on its
+device, and has the halos cropped off; the blocks of a dp row
 are joined on the row's sp-0 device (the reshard smh_tpu's full_step does
 before its march), where the checksums are taken over whole planes. The
 march runs each dp row's frames on that device in ONE launch of kernel 4
@@ -33,9 +34,9 @@ from ..ops import kernels
 from ..ops import lsd as ops_lsd
 from ..ops import pipeline as opp
 
-# Rows of context a block reads past each of its seams: 1 for the L1
-# dilate (lsd_bool, and kernel 3's own) and for the 8-neighbour quiet SAD,
-# OCR_PREPROCESS_DILATE_RADIUS for the OCR box dilate on the quadrant.
+# Rows of context a block reads past each of its seams: 1 for kernel 3's L1
+# dilate and for the 8-neighbour quiet SAD, OCR_PREPROCESS_DILATE_RADIUS
+# for kernel 6's box dilate on the quadrant.
 HALO = max(1, int(C.OCR_PREPROCESS_DILATE_RADIUS))
 
 
@@ -103,12 +104,13 @@ def _analyze_block(frames: np.ndarray, r0: int, r1: int, g, dev: torch.device, g
     roi = frames[:, g.map_y + lo : g.map_y + hi, g.map_x : g.map_x + g.map_w, :3]
     planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(roi, -1, 0))).to(dev)
     b8, g8, r8 = planes[0], planes[1], planes[2]  # [b, rows, map_w] each, contiguous
-    marker_u8, luma = kernels.classify_luma_planes(r8, g8, b8)
+    _, luma = kernels.classify_luma_planes(r8, g8, b8)
     a, c = r0 - lo, r1 - lo  # the block's own rows
+    bits = kernels.fused_mask_bits(r8, g8, b8)[:, a:c]
     out = {
         "ui": (luma if grayscale else torch.stack([r8, g8, b8], dim=-1))[:, a:c],
-        "lsd_bool": opp._dilate_l1_radius1_bool(marker_u8 != 0)[:, a:c],
-        "lsd_bits": kernels.fused_mask_bits(r8, g8, b8)[:, a:c],
+        "lsd_bool": opp.unpack_bits_bool(bits, g.map_w),
+        "lsd_bits": bits,
         "quiet_bool": opp._edgy_quiet_planes(b8, g8, r8)[:, a:c],
     }
     # The quadrant in map coordinates: rows brq_h .. 2 brq_h, of which this
@@ -121,13 +123,15 @@ def _analyze_block(frames: np.ndarray, r0: int, r1: int, g, dev: torch.device, g
         def quad(p):
             return p[:, h0 - lo : h1 - lo, brq_w : 2 * brq_w]
 
-        ocr = opp._ocr_preprocess_planes(quad(r8), quad(g8), quad(b8), luma=quad(luma), row0=h0 - brq_h,
-                                         total_h=brq_h)[:, q0 - h0 : q1 - h0]
-        scales = quad(luma)[:, q0 - h0 : q1 - h0] != 0
+        pre = kernels.brq_preprocess(quad(r8), quad(g8), quad(b8), quad(luma), row0=h0 - brq_h, total_h=brq_h)
+        mine = slice(q0 - h0, q1 - h0)
+        out["ocr_img"] = pre["ocr_img"][:, mine]
+        out["scales_bool"] = pre["sbool"][:, mine].view(torch.bool)
+        out["scales_bits"] = pre["scales_bits"][:, mine]
     else:  # no quadrant row in this block
-        ocr = luma[:, :0, brq_w : 2 * brq_w]
-        scales = ocr != 0
-    out["ocr_img"], out["scales_bool"] = ocr, scales
+        out["ocr_img"] = luma[:, :0, brq_w : 2 * brq_w]
+        out["scales_bool"] = out["ocr_img"] != 0
+        out["scales_bits"] = out["ocr_img"][..., : (brq_w + 7) // 8]
     return out
 
 
@@ -157,7 +161,6 @@ def analyze_batch(frames, mesh: Mesh, grayscale: bool = True) -> dict:
         ui_flat = ui if grayscale else ui.to(torch.int32).sum(dim=-1)
         joined["ui_check"] = opp._weighted_check(ui_flat)
         joined["lsd_mask"] = opp.mask_u8(joined["lsd_bool"])
-        joined["scales_bits"] = opp.pack_bits(joined["scales_bool"])
         btn = mine[:, g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w, :3]
         joined["red_ratio"] = opp._red_gate_roi(torch.from_numpy(np.ascontiguousarray(btn)).to(home))
         for k, v in joined.items():

@@ -374,3 +374,76 @@ def scales_read_cases() -> dict:
     bar(sbool, x0, y1 + 1, x1 + 20)
     cases["plane_shorter_than_a_strip"] = (text, sbool)
     return cases
+
+
+def text_rgb(rng, h: int, w: int, share: float = 0.5) -> np.ndarray:
+    """RGB u8 [h, w, 3] for the quadrant preprocess (kernel 6): a `share`
+    of the pixels near its thresholds -- grey at 195-255 (strict from 200:
+    strict needs r == g == b), grey-ish at 125-255 with a channel spread up
+    to 13 (edge needs a spread of at most 12 and a min of 130) -- the rest
+    uniform."""
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.int64)
+    pick = rng.random((h, w))
+    grey = rng.integers(195, 256, (h, w))
+    strict = pick < share / 2
+    rgb[strict] = grey[strict, None]
+    edge = (pick >= share / 2) & (pick < share)
+    lo = rng.integers(125, 256, (h, w))
+    spread = rng.integers(0, 14, (h, w, 3))
+    rgb[edge] = np.minimum(lo[edge, None] + spread[edge] * (rng.random((int(edge.sum()), 3)) < 0.5), 255)
+    return rgb.astype(np.uint8)
+
+
+def brq_preprocess_cases(rng) -> dict:
+    """{name: RGB u8 [h, w, 3]}: quadrant planes at the edges kernel 6 must
+    get right (the text_rgb mix unless named): widths with w % 8 and w % 32
+    != 0, strict pixels within R of the last rows and columns, the seams of
+    its 16 x 128 tiles, all-strict and all-edge planes, and a plane
+    narrower and shorter than R."""
+    R = int(C.OCR_PREPROCESS_DILATE_RADIUS)
+    cases = {f"ragged_{h}x{w}": text_rgb(rng, h, w) for h, w in ((37, 53), (19, 7), (40, 101), (9, 250))}
+    for h, w in ((33, 129), (17, 257), (48, 384)):
+        cases[f"tile_seams_{h}x{w}"] = text_rgb(rng, h, w, share=0.2)
+    # Strict pixels on the last R + 1 rows and columns among edge pixels:
+    # the clip drops their dilation, but they stay text themselves.
+    h, w = 30, 70
+    edge = np.full((h, w, 3), 150, np.uint8)
+    edge[..., 0] = 156
+    for k in range(R + 1):
+        edge[h - 1 - k, 5 + 9 * k] = 230
+        edge[3 + 6 * k, w - 1 - k] = 240
+    cases["strict_by_the_last_rows_and_columns"] = edge
+    cases["all_strict"] = np.full((24, 45, 3), 220, np.uint8)
+    half = np.full((24, 45, 3), 140, np.uint8)
+    half[..., 1] = 146
+    cases["all_edge"] = half
+    cases["dense"] = text_rgb(rng, 64, 200, share=0.95)
+    cases["smaller_than_r"] = text_rgb(rng, 2, 2, share=1.0)
+    return cases
+
+
+def mask_bits_cases(budget: int) -> dict:
+    """{name: (bits u8 [H, ceil(W/8)], W)}: bit planes (MSB first, pad bits
+    zero) at the edges kernel 7 must get right: an empty and a full mask,
+    one pixel at each corner, budget - 1, budget and budget + 1 non-zero
+    u32 words, and ragged widths (W % 8 and W % 32 != 0)."""
+
+    def packed(m: np.ndarray) -> np.ndarray:
+        return np.packbits(m, axis=1)
+
+    cases = {"empty": (packed(np.zeros((40, 100), bool)), 100), "full": (packed(np.ones((40, 100), bool)), 100)}
+    for name, (y, x) in {"top_left": (0, 0), "top_right": (0, 99), "bottom_left": (39, 0),
+                         "bottom_right": (39, 99)}.items():
+        m = np.zeros((40, 100), bool)
+        m[y, x] = True
+        cases[f"corner_{name}"] = (packed(m), 100)
+    h, w = max(70, budget // 8 + 2), 250  # 8 words a row, the last 26 pixels wide
+    for n in (budget - 1, budget, budget + 1):
+        m = np.zeros((h, w), bool)
+        for s in np.random.default_rng(n).choice(h * 8, size=n, replace=False):
+            m[s // 8, 32 * (s % 8) + int(s % 26)] = True
+        cases[f"nz_{n}"] = (packed(m), w)
+    for w in (1, 7, 33, 61, 250):
+        m = np.random.default_rng(w).random((23, w)) < 0.05
+        cases[f"ragged_{w}"] = (packed(m), w)
+    return cases

@@ -108,11 +108,13 @@ COPIES = {
         "import tempfile",
     },
     # Scale texts rendered from the bundled fonts; the screen sizes the
-    # port is held at, with a frame for each; the scales read kernel's edge
-    # cases.
+    # port is held at, with a frame for each; the edge cases of the scales
+    # read kernel, of the quadrant preprocess kernel and of the mask words
+    # kernel.
     "testing.py": {
         "__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS",
-        "RESOLUTIONS", "resolution_frame", "scales_read_cases",
+        "RESOLUTIONS", "resolution_frame", "scales_read_cases", "text_rgb", "brq_preprocess_cases",
+        "mask_bits_cases",
     },
     # --device (the App, its worker and --warmup run on it), no compile cache.
     "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},
@@ -121,7 +123,7 @@ DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/
 # The port's own modules: the device half and the package's entry points.
 PORT_ONLY = {
     "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
-    "probe_scales_read.py",
+    "probe_scales_read.py", "probe_brq_preprocess.py", "probe_mask_words.py",
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
     "vision/cuda_backend.py", "parallel/__init__.py", "parallel/dryrun.py", "parallel/spmd.py",

@@ -207,6 +207,7 @@ def test_build_command_compiles_the_csrc_files_for_sm90a():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {
         "classify_luma.cu", "quiet_walk.cu", "fused_mask.cu", "ray_march.cu", "scales_read.cu",
+        "brq_preprocess.cu", "mask_words.cu",
     }
     assert {p.name for p in _build.headers()} == {"classify.cuh"}
     assert all(p.parent == CSRC for p in srcs)
@@ -302,8 +303,11 @@ def test_classify_launch_counter_untouched_on_cpu():
     from smh_tpu_torch.ops import scales_device as tsd
 
     tsd.scales_records(p != 0, p != 0, torch.zeros((1, tsd.GLYPH_H * tsd.GLYPH_W)))
+    kernels.brq_preprocess(p, p, p, p)
+    kernels.mask_bbox_sparse(p[:, :1], 7, 4)
     assert kernels.LAUNCHES == {
         "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
+        "brq_preprocess": 0, "mask_words": 0,
     }
 
 
