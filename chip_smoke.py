@@ -50,21 +50,35 @@ each printing a line, each failing loudly:
                plain twin (every output bit-equal: ocr_img, the text and
                scales planes, the scales bits, the checksums) on
                testing.brq_preprocess_cases (ragged widths, strict pixels
-               by the last rows and columns, tile seams, dense planes;
-               contiguous and as windows of a padded plane), random planes
-               at both quadrant shapes, the mesh's row bands, the verify
-               frame's quadrant at 1080p and 4K, the seven screen sizes'
-               quadrants (one and B = 3), and B = 1, 3 and 8 quadrants of
-               rows one buffer apart (== the per-frame kernel); one launch
-               per call; timed at both quadrants and at B = 8;
+               by the last rows and columns, the seams of its 16 x 124
+               tiles, dense planes; contiguous and as windows of a padded
+               plane), windows whose start column and row pitch take every
+               value mod 16 (R, G, B and the luma each their own), shapes
+               around the tiles and their R halo, random planes at both
+               quadrant shapes, the mesh's row bands (edges on the tiles'
+               row seams; every output == the whole quadrant's rows), the
+               verify frame's quadrant at 1080p and 4K, the seven screen
+               sizes' quadrants (one and B = 3), and B = 1, 3 and 8
+               quadrants of rows one buffer apart, the luma's an odd stride
+               apart too (== the per-frame kernel); one CUDA launch per call
+               and no memset (profiler); timed at both quadrants and at B =
+               8 beside its bound (its chain floor: probe_brq_preprocess);
      mask_words — kernel 7, the marker mask's bbox and sparse words,
                against its plain twin (every lane) on
                testing.mask_bits_cases (empty, full, corners, nz around the
-               budget, ragged widths) at budgets 0, 1, 64 and 256, the
-               verify frame's mask bits, random masks at every sparse rung
-               (a dense 4K mask among them), and B = 1, 3 and 8 planes of
-               one buffer (== the per-frame kernel); one launch per call;
-               timed at both map shapes and at B = 8;
+               budget, ragged widths, rows of 0-3 mod 4 bytes, words on both
+               sides of its tiles' seams, nz = budget - 1, budget, budget +
+               1 with the budget-th word at a seam) at budgets 0, 1, 64 and
+               256, the verify frame's mask bits, random masks at every
+               sparse rung (a dense 4K mask among them), rows of 0-3 mod 4
+               bytes and words at every tile seam at the map shapes, and B
+               = 1, 3 and 8 planes of one buffer (== the per-frame kernel);
+               one launch per call; timed at both map shapes and at B = 8
+               beside its bound (its chain floor: probe_mask_words);
+     repeated — kernels 6 and 7, 100 calls each in turns over shapes, batch
+               sizes and budgets (every tenth on a second stream), each ==
+               its plain twin: the scratch each keeps between launches
+               comes back clean;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
@@ -920,16 +934,46 @@ def phase_brq_preprocess(dev: torch.device) -> dict:
         check(windows(rgb, (3, 5)), f"{name} in a padded plane")
     print(f"brq_preprocess: kernel == plain on the edge cases {sorted(cases)}, contiguous and as windows of a "
           f"padded plane", flush=True)
+
+    def placed(rgb: np.ndarray, col: int, pitch_mod: int, lcol: int, lpitch_mod: int) -> tuple:
+        """rgb's planes as windows starting at column `col` of planes whose
+        rows are a pitch = pitch_mod (mod 16) bytes apart (R, G, B in one
+        buffer), the plain luma a window at `lcol` of a plane of its own
+        whose pitch = lpitch_mod (mod 16)."""
+        h, w, _ = rgb.shape
+        pitch = w + col + (pitch_mod - (w + col)) % 16
+        big = torch.zeros((3, h, pitch), dtype=torch.uint8, device=dev)
+        big[:, :, col : col + w] = torch.from_numpy(np.ascontiguousarray(np.moveaxis(rgb, -1, 0))).to(dev)
+        r8, g8, b8 = (big[c, :, col : col + w] for c in range(3))
+        lpitch = w + lcol + (lpitch_mod - (w + lcol)) % 16
+        lbig = torch.zeros((h, lpitch), dtype=torch.uint8, device=dev)
+        lbig[:, lcol : lcol + w] = K.classify_luma_planes_plain(r8, g8, b8)[1]
+        return r8, g8, b8, lbig[:, lcol : lcol + w]
+
+    # Window starts and row pitches at every value mod 16, each plane's own
+    # (the kernel reads aligned words and shifts them; it stores aligned
+    # words whose bytes come from two lanes), across two tile seams.
+    for k in range(16):
+        rgb = testing.text_rgb(rng, 37, 250, 0.4)
+        check(placed(rgb, k, (7 * k + 3) % 16, (k + 5) % 16, (3 * k + 1) % 16), f"window at {k} mod 16")
+    # Widths and heights around the 16 x 124 tiles and their R halo.
+    for h, w in ((47, 369), (48, 372), (49, 375), (61, 496), (64, 497), (65, 500), (13, 1000), (19, 1117)):
+        for share in (0.3, 0.9):
+            check(placed(testing.text_rgb(rng, h, w, share), 3, 1, 6, 9), f"{h}x{w} share {share}")
+    print("brq_preprocess: kernel == plain on windows at every start column and row pitch mod 16 (R, G, B and "
+          "the luma each their own) and on shapes around the 16 x 124 tiles", flush=True)
     for h, w in ((411, 493), (822, 986)):
         for share in (0.05, 0.5, 0.95):
             check(windows(testing.text_rgb(rng, h, w, share), (h, w)), f"random {h}x{w} share {share}")
-    rgb = testing.text_rgb(rng, 120, 200, 0.6)
-    for row0, rows in ((0, 40), (37, 43), (97, 23)):
+    rgb = testing.text_rgb(rng, 120, 260, 0.6)
+    whole = check(windows(rgb), "the quadrant the bands cut")
+    # Bands whose edges fall on the tiles' row seams and their R halo.
+    for row0, rows in ((0, 40), (37, 43), (97, 23), (13, 19), (16, 16), (29, 35), (45, 20), (3, 110)):
         lo, hi = max(0, row0 - 3), min(120, row0 + rows + 3)
         band = check(windows(rgb[lo:hi]), f"band {lo}..{hi}", row0=lo, total_h=120)
-        whole = K.brq_preprocess_plain(*windows(rgb))
-        require(torch.equal(band["ocr_img"][row0 - lo : row0 - lo + rows], whole["ocr_img"][row0 : row0 + rows]),
-                f"brq_preprocess band at {row0} != the whole quadrant's rows")
+        for k in ("ocr_img", "text", "sbool", "scales_bits"):
+            require(torch.equal(band[k][row0 - lo : row0 - lo + rows], whole[k][row0 : row0 + rows]),
+                    f"brq_preprocess band at {row0}: {k} != the whole quadrant's rows")
     print("brq_preprocess: kernel == plain on random planes at 411x493 and 822x986 (5-95 % of pixels at the "
           "thresholds) and on mesh bands (row0 > 0, == the whole quadrant's rows)", flush=True)
     verify = {}
@@ -956,19 +1000,21 @@ def phase_brq_preprocess(dev: torch.device) -> dict:
             rows[i, : 3 * h * w] = torch.from_numpy(np.moveaxis(rgb[..., ::-1], -1, 0).reshape(-1)).to(dev)
         planes = rows[:, : 3 * h * w].view(bsz, 3, h, w)
         b8, g8, r8 = planes[:, 0], planes[:, 1], planes[:, 2]
-        _, luma = K.classify_luma_planes(r8, g8, b8)
+        lrows = torch.zeros((bsz, h * w + 11), dtype=torch.uint8, device=dev)  # the luma's frames an odd stride apart
+        luma = lrows[:, : h * w].view(bsz, h, w)
+        luma.copy_(K.classify_luma_planes(r8, g8, b8)[1])
         brq = tuple(p[:, h // 2 :, w // 2 :] for p in (r8, g8, b8, luma))
         got = check(brq, f"B={bsz} strided")
         for i in range(bsz):
             one = K.brq_preprocess(*(p[i] for p in brq))
             require(all(torch.equal(got[k][i], one[k]) for k in one), f"brq_preprocess B={bsz} frame {i} != per frame")
         prof = device_profile(lambda: K.brq_preprocess(*brq), names=("brq_preprocess",))
-        require(prof["kernels"] == 1.0 and prof["named"]["brq_preprocess"] == 1.0,
-                f"brq_preprocess B={bsz}: {prof['kernels']} kernel launches per call")
+        require(prof["launches"] == 1.0 and prof["named"]["brq_preprocess"] == 1.0,
+                f"brq_preprocess B={bsz}: {prof['launches']} CUDA launches per call (kernels and memsets)")
         batched[bsz] = (brq, prof["named_us"]["brq_preprocess"], prof["us"])
-    print(f"brq_preprocess: B = {BATCH_SIZES} quadrants of 411x493 from one buffer (frame stride {3 * h * w + 37}) "
-          f"== plain and == the per-frame kernel; one kernel launch per call (profiler; + the checks' memset); "
-          f"device us per call {({b: round(v[1], 2) for b, v in batched.items()})}", flush=True)
+    print(f"brq_preprocess: B = {BATCH_SIZES} quadrants of 411x493 from one buffer (frame stride {3 * h * w + 37}, "
+          f"the luma's {h * w + 11}) == plain and == the per-frame kernel; one CUDA launch per call, no memset "
+          f"(profiler); device us per call {({b: round(v[1], 2) for b, v in batched.items()})}", flush=True)
 
     def bound_of(bsz: int, qh: int, qw: int) -> dict:
         return bound(bsz * kernel_bytes("brq_preprocess", 2 * qh, 2 * qw), bsz * OPS_PER_PX["brq_preprocess"] * qh * qw)
@@ -984,7 +1030,8 @@ def phase_brq_preprocess(dev: torch.device) -> dict:
             **bound_of(1, *planes[0].shape),
         }
         print(f"brq_preprocess: {planes[0].shape[0]}x{planes[0].shape[1]} quadrant of the {fw}x{fh} verify frame: "
-              + timing_line(times[hh]) + f"; the call with its memset {prof['us']:.2f} us", flush=True)
+              + timing_line(times[hh]) + f"; the call's CUDA rows {prof['launches']:.0f}, {prof['us']:.2f} us",
+              flush=True)
     brq, us8, call8 = batched[BATCH]
     b8 = {"ms": cuda_ms(lambda: K.brq_preprocess(*brq)), **bound_of(BATCH, *brq[0].shape[-2:])}
     print(f"brq_preprocess: B={BATCH} quadrants of {brq[0].shape[-2]}x{brq[0].shape[-1]} (one launch): wrapper "
@@ -1055,6 +1102,30 @@ def phase_mask_words(dev: torch.device) -> dict:
             dense[f"{h}x{w} {density}"] = int(got[6])
     print(f"mask_words: kernel == plain on the verify frame's mask bits at 1080p and 4K and on random masks at every "
           f"rung {_SPARSE_BUDGETS} (non-zero words {dense})", flush=True)
+    # Rows of (W + 7) / 8 bytes with every remainder mod 4, and words on both
+    # sides of every tile seam (K.mask_tiles: whole rows a tile), in each
+    # row's first and last words.
+    for mw in (986, 993, 1001, 984):
+        bits = on_card(np.packbits(rng.random((822, mw)) < 0.01, axis=1))
+        check(bits, mw, MASK_BUDGET, f"822x{mw}, {(mw + 7) // 8 % 4} mod 4 bytes a row")
+    seams = {}
+    for mh, mw in ((822, 986), (1644, 1972)):
+        nw = ((mw + 7) // 8 + 3) // 4
+        rows = K.MASK_TILE_WORDS // nw
+        m = np.zeros((mh, mw), bool)
+        for y in range(rows - 1, mh, rows):
+            m[y : y + 2, [0, 31, 32, mw - 1]] = True
+        bits = on_card(np.packbits(m, axis=1))
+        for budget in (0, 64, MASK_BUDGET):
+            got = check(bits, mw, budget, f"words at the tile seams {mh}x{mw}")
+        seams[f"{mh}x{mw}"] = (K.mask_tiles(mh, mw), rows, int(got[6]))
+    print(f"mask_words: kernel == plain on rows of 0-3 mod 4 bytes and on words at every tile seam "
+          f"({{shape: (tiles, rows a tile, nz)}} {seams})", flush=True)
+    from smh_tpu_torch import _build
+
+    for mh, mw in ((822, 986), (1644, 1972), (1096, 2194), (1, 1), (65535, 8), (5, 65535), (5000, 65535), (8, 65536)):
+        tiles = _build.load().smh_mask_words_tiles(mh, mw)
+        require(tiles == (K.mask_tiles(mh, mw) or -1), f"mask_tiles({mh}, {mw}) != the kernel's {tiles}")
     h, w = 822, 986
     bpr = (w + 7) // 8
     batched = {}
@@ -1098,6 +1169,59 @@ def phase_mask_words(dev: torch.device) -> dict:
         "replaces": "smh_tpu/ops/pipeline.py:326", "max_abs_err": 0, **times[1080], "library_ms": None,
         "shape": "822x986", "device_us_4k": times[2160]["device_us"], "device_us_b8": us8,
     }
+
+
+def phase_repeated(dev: torch.device) -> None:
+    """Kernels 6 and 7 called 100 times each, in turns, alternating shapes,
+    batch sizes and budgets (every tenth call on a second stream, which has
+    a scratch of its own), each result held to its plain twin: the state
+    each kernel keeps between launches (its scratch) comes back clean."""
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+
+    rng = np.random.default_rng(17)
+
+    def quadrants(bsz: int, h: int, w: int) -> tuple:
+        rows = torch.zeros((bsz, 3 * h * w + 37), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            rgb = testing.text_rgb(rng, h, w, 0.3)
+            rows[i, : 3 * h * w] = torch.from_numpy(np.moveaxis(rgb, -1, 0).reshape(-1)).to(dev)
+        planes = rows[:, : 3 * h * w].view(bsz, 3, h, w)
+        luma = K.classify_luma_planes_plain(planes[:, 0], planes[:, 1], planes[:, 2])[1]
+        out = tuple(p[:, h // 2 :, w // 2 :] for p in (planes[:, 0], planes[:, 1], planes[:, 2], luma))
+        return out if bsz > 1 else tuple(p[0] for p in out)
+
+    def masks(bsz: int, h: int, w: int, density: float) -> torch.Tensor:
+        n = h * ((w + 7) // 8)
+        rows = torch.zeros((bsz, n + 5), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            rows[i, :n] = torch.from_numpy(np.packbits(rng.random((h, w)) < density, axis=1).reshape(-1)).to(dev)
+        bits = rows[:, :n].view(bsz, h, (w + 7) // 8)
+        return bits if bsz > 1 else bits[0]
+
+    k6 = [quadrants(b, h, w) for b, h, w in ((1, 822, 986), (3, 74, 500), (1, 1644, 1972), (8, 822, 986))]
+    k6 = [(p, K.brq_preprocess_plain(*p)) for p in k6]
+    k7 = [(masks(b, h, w, d), w, budget) for b, h, w, d, budget in
+          ((1, 822, 986, 0.001, 1024), (3, 300, 250, 0.02, 64), (1, 1644, 1972, 0.5, 32768),
+           (8, 822, 986, 0.0005, 256), (1, 1644, 1972, 0.0005, 1024), (8, 822, 986, 0.0005, 2048),
+           (1, 1644, 1972, 0.0005, 32768))]
+    k7 = [(bits, w, budget, K.mask_bbox_sparse_plain(bits, w, budget)) for bits, w, budget in k7]
+    side = torch.cuda.Stream(dev)
+    for i in range(100):
+        planes, want6 = k6[i % len(k6)]
+        bits, w, budget, want7 = k7[i % len(k7)]
+        stream = side if i % 10 == 9 else torch.cuda.current_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            got6 = K.brq_preprocess(*planes)
+            got7 = K.mask_bbox_sparse(bits, w, budget)
+        torch.cuda.synchronize(dev)
+        for k, v in want6.items():
+            require(torch.equal(got6[k], v), f"repeated call {i}: brq_preprocess {k} != plain")
+        require(torch.equal(got7, want7), f"repeated call {i}: mask_words != plain (budget {budget})")
+    print(f"repeated: 100 calls each of brq_preprocess ({len(k6)} shapes and batch sizes in turn) and mask_words "
+          f"({len(k7)} shapes, batch sizes and budgets in turn), every tenth on a second stream, each == its plain "
+          f"twin", flush=True)
 
 
 def line_mask(h: int, w: int, lines) -> np.ndarray:
@@ -2747,6 +2871,7 @@ def main() -> int:
     kernels["scales_read"] = timed_phase("scales_read", phase_scales_read, dev)
     kernels["brq_preprocess"] = timed_phase("brq_preprocess", phase_brq_preprocess, dev)
     kernels["mask_words"] = timed_phase("mask_words", phase_mask_words, dev)
+    timed_phase("repeated", phase_repeated, dev)
     # Before the traces of thousands of launches (phase_timing, phase_batch):
     # late in a run, short traces lost most of their records four times
     # running (device_profile).

@@ -66,13 +66,16 @@ _SIGNATURES = {
     #  H, W, B, budget, out, stream)
     "smh_scales_read": [_VP, _I64, _VP, _I64, _VP, _I, _I, _I, _I, _I, _VP, _VP],
     # (r, g, b, pitch, stride, luma, luma_pitch, luma_stride, spack,
-    #  spack_stride, text, sbool, plane_stride, scheck, h, w, B, row0,
-    #  total_h, mono, bright, edge_mono, edge_bright, text_threshold, stream);
-    # pitches and strides in bytes
-    "smh_brq_preprocess": [_VP, _VP, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _VP, _VP, _I64, _VP,
+    #  spack_stride, text, sbool, plane_stride, scheck, scratch, h, w, B,
+    #  row0, total_h, mono, bright, edge_mono, edge_bright, text_threshold,
+    #  stream); pitches and strides in bytes
+    "smh_brq_preprocess": [_VP, _VP, _VP, _I64, _I64, _VP, _I64, _I64, _VP, _I64, _VP, _VP, _I64, _VP, _VP,
                            _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _VP],
-    # (bits, frame_stride (bytes), H, W, B, budget, out, stream)
-    "smh_mask_words": [_VP, _I64, _I, _I, _I, _I, _VP, _VP],
+    # (H, W) -> tiles of a frame, or -1 where the kernel does not take it
+    "smh_mask_words_tiles": [_I, _I],
+    # (bits, frame_stride (bytes), H, W, B, budget, scratch, scratch_words,
+    #  out, stream)
+    "smh_mask_words": [_VP, _I64, _I, _I, _I, _I, _VP, _I64, _VP, _VP],
 }
 
 _lock = threading.Lock()

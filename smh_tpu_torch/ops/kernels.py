@@ -69,15 +69,20 @@ they compute each frame's plain result.
   the quadrant's R, G, B and luma (kernel 1's) in place; writes ocr_img
   and the scales bits straight into the scalespack, the text and scales
   planes that kernel 5 reads, and the four u32 checksums. 7.125 B/px, but
-  bound by the launch and one tile's chain (loads, ballots, two barriers).
+  bound by the launch and one tile's chain (loads, word ORs, two
+  barriers): a lane a quad of 4 pixels, each plane read as aligned 32-bit
+  words, each output stored as aligned 4-byte words; the checksums are
+  summed in a scratch whose last adder writes them out and zeroes it, so
+  no memset precedes the launch (_scratch).
 * mask_bbox_sparse -> csrc/mask_words.cu (kernel 7)
   Replaces _mask_bbox and _sparse_words (_pack_words32 + the "search"
   engine of _compact_words) of smh_tpu's _pack_outputs (XLA ops), which
   read the dilated marker mask: from kernel 3's bits it writes the bbox,
   the crop origin 0, the total count of non-zero u32 words and the first
   `budget` of them (index and word), as the hostpack's i32 bytes. Bound by
-  the launch and a cluster barrier: a cluster of 8 blocks per frame counts
-  its words, scans the counts, exchanges the block totals and writes.
+  the launch and the scan across blocks: a tile of whole rows a block
+  (mask_tiles), the tiles joined by a decoupled look-back through a
+  scratch that every launch leaves zeroed (_scratch).
 """
 
 from __future__ import annotations
@@ -109,13 +114,26 @@ QUIET_TILE_W = 64
 # csrc/fused_mask.cu).
 FUSED_TILE_H = 16
 FUSED_TILE_W = 128
-# Kernel 7 (csrc/mask_words.cu): a cluster of MASK_CLUSTER blocks of
-# MASK_THREADS threads per frame, each block at most MASK_TILES tiles of a
-# word a thread: the most u32 words a frame's bit plane may hold.
-MASK_CLUSTER = 8
-MASK_THREADS = 1024
-MASK_TILES = 64
-MASK_WORDS_MAX = MASK_CLUSTER * MASK_THREADS * MASK_TILES
+# Kernel 6 (csrc/brq_preprocess.cu): tiles of BRQ_TILE_H rows (of
+# BRQ_TILE_H_SMALL where BRQ_TILE_H-row tiles would leave SMs idle) x
+# BRQ_TILE_W pixels (the 31 quads of lanes 1 .. 31; lane 0 holds the 4
+# pixels before), and the u32s of its scratch a frame.
+BRQ_TILE_H = 16
+BRQ_TILE_H_SMALL = 8
+BRQ_TILE_W = 124
+BRQ_SCRATCH = 8
+# Kernel 7 (csrc/mask_words.cu): a tile of whole rows, at most
+# MASK_TILE_WORDS u32 words, a block of MASK_THREADS threads; a frame at
+# most MASK_MAX_TILES tiles, so at most MASK_WORDS_MAX words, and at most
+# MASK_MAX_DIM rows and columns; its scratch MASK_SCRATCH_HEAD u32s a frame
+# and MASK_STATE_WORDS a tile.
+MASK_THREADS = 512
+MASK_TILE_WORDS = 2048
+MASK_MAX_TILES = 4096
+MASK_WORDS_MAX = MASK_MAX_TILES * MASK_TILE_WORDS
+MASK_SCRATCH_HEAD = 4
+MASK_STATE_WORDS = 4
+MASK_MAX_DIM = 0xFFFF
 # The i32 lanes of kernel 7's output before its idx and dat: y0, y1, x0,
 # x1, the crop origin (0, 0) and nz.
 MASK_META = 7
@@ -124,6 +142,26 @@ MASK_META = 7
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+_SCRATCH: dict = {}
+_scratch_lock = threading.Lock()
+
+
+def _scratch(kernel: str, device: torch.device, stream: int, words: int) -> torch.Tensor:
+    """A u32 scratch (as int32) of at least `words` for `kernel` on `device`
+    and the stream `stream` (its cudaStream_t; the device's current
+    stream), kept across calls: the kernel leaves it zeroed at the end of
+    every launch, so it is zeroed once, when it is made (or grows). One per
+    device and stream, so launches that may run at once never share one;
+    calls on one stream run in order."""
+    key = (kernel, device.index, stream)
+    with _scratch_lock:
+        buf = _SCRATCH.get(key)
+        if buf is None or buf.numel() < words:
+            buf = torch.zeros(words, dtype=torch.int32, device=device)
+            _SCRATCH[key] = buf
+        return buf
 
 
 def _stream_ptr(t: torch.Tensor) -> int:
@@ -437,15 +475,17 @@ def brq_preprocess(r8: torch.Tensor, g8: torch.Tensor, b8: torch.Tensor, luma: t
     spack = torch.empty((*lead, h * bpr + h * w), dtype=torch.uint8, device=r8.device)
     planes_out = torch.empty((2, *lead, h, w), dtype=torch.uint8, device=r8.device)
     scheck = torch.empty((*lead, 4), dtype=torch.int32, device=r8.device)
+    stream = _stream_ptr(r8)
+    scratch = _scratch("brq_preprocess", r8.device, stream, BRQ_SCRATCH * bsz)
     lib = _build.load()
     with torch.cuda.device(r8.device):
         code = lib.smh_brq_preprocess(
             r8.data_ptr(), g8.data_ptr(), b8.data_ptr(), pitch, stride, luma.data_ptr(), lpitch, lstride,
             spack.data_ptr(), h * bpr + h * w, planes_out[0].data_ptr(), planes_out[1].data_ptr(), h * w,
-            scheck.data_ptr(), h, w, bsz, row0, total_h,
+            scheck.data_ptr(), scratch.data_ptr(), h, w, bsz, row0, total_h,
             C.OCR_PREPROCESS_MONOCHROMATICY_THRESHOLD, C.OCR_PREPROCESS_BRIGHTNESS_THRESHOLD,
             C.OCR_PREPROCESS_SIMILARITY_EDGE_THRESHOLD, C.OCR_PREPROCESS_BRIGHTNESS_EDGE_THRESHOLD,
-            OCR_BINARY_THRESHOLD, _stream_ptr(r8),
+            OCR_BINARY_THRESHOLD, stream,
         )
     _build.check(code, "smh_brq_preprocess")
     LAUNCHES["brq_preprocess"] += 1
@@ -469,6 +509,19 @@ def mask_bbox_sparse_plain(bits: torch.Tensor, w: int, budget: int) -> torch.Ten
     return torch.cat([meta.to(torch.int32), idx.to(torch.int32), _u32_as_i32(dat)], dim=-1)
 
 
+def mask_tiles(h: int, w: int) -> int | None:
+    """Kernel 7's tiles for an h x w mask (csrc/mask_words.cu's
+    smh_mask_words_tiles): the most whole rows of at most MASK_TILE_WORDS
+    u32 words a tile; None where the frame has more than MASK_MAX_DIM rows
+    or columns, a row more than MASK_TILE_WORDS words or the frame more
+    than MASK_MAX_TILES tiles."""
+    nw = -(-((w + 7) // 8) // 4)
+    if not (0 < h <= MASK_MAX_DIM and 0 < w <= MASK_MAX_DIM) or nw > MASK_TILE_WORDS:
+        return None
+    tiles = -(-h // (MASK_TILE_WORDS // nw))
+    return tiles if tiles <= MASK_MAX_TILES else None
+
+
 def mask_bbox_sparse(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
     """The dilated marker mask's bbox and sparse words from its bit plane,
     u8 [H, ceil(w/8)] or [B, H, ceil(w/8)] (kernel 3's lsd_bits; each frame
@@ -490,16 +543,20 @@ def mask_bbox_sparse(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
         return mask_bbox_sparse_plain(bits, w, budget)
     if bits.device.type != "cuda":
         raise ValueError(f"unsupported device {bits.device}")
-    n_words = bits.shape[-2] * -(-bits.shape[-1] // 4)
-    if n_words > MASK_WORDS_MAX:
-        raise ValueError(f"{n_words} words a frame: the kernel takes at most {MASK_WORDS_MAX}")
+    tiles = mask_tiles(bits.shape[-2], w)
+    if tiles is None:
+        raise ValueError(f"a {bits.shape[-2]}x{w} mask: the kernel takes frames of at most {MASK_MAX_DIM} rows and "
+                         f"columns and {MASK_MAX_TILES} tiles")
     stride = _frame_stride((bits,))
     bsz = bits.shape[0] if bits.dim() == 3 else 1
     out = torch.empty((*bits.shape[:-2], MASK_META + 2 * budget), dtype=torch.int32, device=bits.device)
+    words = bsz * (MASK_SCRATCH_HEAD + MASK_STATE_WORDS * tiles)
+    stream = _stream_ptr(bits)
+    scratch = _scratch("mask_words", bits.device, stream, words)
     lib = _build.load()
     with torch.cuda.device(bits.device):
-        code = lib.smh_mask_words(bits.data_ptr(), stride, bits.shape[-2], w, bsz, budget, out.data_ptr(),
-                                  _stream_ptr(bits))
+        code = lib.smh_mask_words(bits.data_ptr(), stride, bits.shape[-2], w, bsz, budget, scratch.data_ptr(),
+                                  scratch.numel(), out.data_ptr(), stream)
     _build.check(code, "smh_mask_words")
     LAUNCHES["mask_words"] += 1
     return out

@@ -419,6 +419,20 @@ def brq_preprocess_cases(rng) -> dict:
     cases["all_edge"] = half
     cases["dense"] = text_rgb(rng, 64, 200, share=0.95)
     cases["smaller_than_r"] = text_rgb(rng, 2, 2, share=1.0)
+    # The seams of the kernel's 16 x 124 tiles (each owns the output words
+    # from up to 3 pixels before its first column) and their R rows and
+    # columns of halo: widths 124 k - 4 .. 124 k + 4, heights 16 k - R ..
+    # 16 k + R, and strict pixels on the seams among edge pixels.
+    for h, w in ((13, 120), (15, 123), (16, 124), (17, 125), (19, 127), (29, 128), (32, 244), (35, 247),
+                 (45, 248), (48, 251), (51, 372), (3, 121), (1, 126), (4, 5)):
+        cases[f"tile124_seams_{h}x{w}"] = text_rgb(rng, h, w, share=0.3)
+    h, w = 40, 260
+    seams = np.full((h, w, 3), 150, np.uint8)
+    seams[..., 0] = 156
+    for y in (0, 12, 15, 16, 19, 31, 32, 35):
+        for x in (0, 3, 120, 123, 124, 127, 244, 247, 248, 251, 259):
+            seams[y, x] = 230
+    cases["strict_on_the_tile124_seams"] = seams
     return cases
 
 
@@ -446,4 +460,33 @@ def mask_bits_cases(budget: int) -> dict:
     for w in (1, 7, 33, 61, 250):
         m = np.random.default_rng(w).random((23, w)) < 0.05
         cases[f"ragged_{w}"] = (packed(m), w)
+    # Rows of (W + 7) / 8 bytes with every remainder mod 4: the kernel forms
+    # each row's words from an odd row pitch.
+    for w in (256, 264, 272, 277):
+        m = np.random.default_rng(w + 1).random((45, w)) < 0.03
+        cases[f"bpr_mod4_{((w + 7) // 8) % 4}"] = (packed(m), w)
+    # The kernel's tiles are whole rows of at most MASK_TILE_WORDS words: at
+    # W = 250 (8 words a row) seams every MASK_TILE_WORDS / 8 rows. Non-zero
+    # words on both sides of two seams, in a row's first and last words;
+    # then nz = budget - 1, budget, budget + 1 with the budget-th word (or
+    # the last) the last word of the first tile or the first of the second.
+    from .ops.kernels import MASK_TILE_WORDS
+
+    seam = MASK_TILE_WORDS // 8 * 8  # the second tile's first word
+    h, w = 2 * seam // 8 + 44, 250
+    m = np.zeros((h, w), bool)
+    for y in (0, seam // 8 - 1, seam // 8, 2 * seam // 8 - 1, 2 * seam // 8, h - 1):
+        m[y, [0, 31, 32, 224, w - 1]] = True
+    cases["tile_seams"] = (packed(m), w)
+    for where, at in (("end", seam - 1), ("start", seam)):
+        for n in (budget - 1, budget, budget + 1):
+            rng = np.random.default_rng(1000 * n + at)
+            before = min(n, budget) - 1  # words before the one at the seam
+            words = np.concatenate([rng.choice(at, size=before, replace=False), [at],
+                                    at + 1 + rng.choice(h * 8 - at - 1, size=n - before - 1, replace=False)])
+            m = np.zeros((h, w), bool)
+            for k in words:
+                j = int(k % 8)
+                m[k // 8, 32 * j + int(k % min(32, w - 32 * j))] = True
+            cases[f"nz_{n}_at_the_seam_{where}"] = (packed(m), w)
     return cases

@@ -171,10 +171,16 @@ def test_probe_patches_apply(variant):
 
 def test_kernel_radius_is_the_preprocess_radius():
     """The kernel's halo and dilate are built for one radius: the
-    constant's."""
+    constant's; its tile (a warp of quads, lane 0 the 4 pixels before the
+    tile) and its scratch a frame are the wrapper's."""
     src = (CSRC / "brq_preprocess.cu").read_text()
     assert int(re.search(r"constexpr int R = (\d+);", src).group(1)) == int(C.OCR_PREPROCESS_DILATE_RADIUS)
     assert "_ocr_preprocess_planes" in src and "_weighted_check" in src
+    assert 4 * (int(re.search(r"constexpr int QUADS = (\d+);", src).group(1)) - 1) == kernels.BRQ_TILE_W
+    assert int(re.search(r"constexpr int TH = (\d+);", src).group(1)) == kernels.BRQ_TILE_H
+    assert int(re.search(r"constexpr int TH_SMALL = (\d+);", src).group(1)) == kernels.BRQ_TILE_H_SMALL
+    assert int(re.search(r"constexpr int SCRATCH = (\d+);", src).group(1)) == kernels.BRQ_SCRATCH
+    assert "cudaMemsetAsync" not in src  # the checks come from the scratch, not a memset
 
 
 def _rois(rng, g) -> np.ndarray:

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from smh_tpu.ops import pipeline as opp
-from smh_tpu_torch import testing
+from smh_tpu_torch import _probe, probe_mask_words, testing
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
 
@@ -110,10 +110,37 @@ def test_kernel_capacity_matches_the_cuda_source():
     import re
 
     src = (CSRC / "mask_words.cu").read_text()
-    assert int(re.search(r"constexpr int CLUSTER = (\d+);", src).group(1)) == kernels.MASK_CLUSTER
-    assert int(re.search(r"constexpr int THREADS = (\d+);", src).group(1)) == kernels.MASK_THREADS
-    assert int(re.search(r"constexpr int MAX_TILES = (\d+);", src).group(1)) == kernels.MASK_TILES
+    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
+    rounds = int(re.search(r"constexpr int ROUNDS = (\d+);", src).group(1))
+    assert threads == kernels.MASK_THREADS and threads * rounds == kernels.MASK_TILE_WORDS
+    assert "constexpr int TILE_WORDS = THREADS * ROUNDS;" in src
+    assert int(re.search(r"constexpr int MAX_TILES = (\d+);", src).group(1)) == kernels.MASK_MAX_TILES
     assert int(re.search(r"constexpr int META = (\d+);", src).group(1)) == kernels.MASK_META
+    assert int(re.search(r"constexpr int HEAD = (\d+);", src).group(1)) == kernels.MASK_SCRATCH_HEAD
+    assert int(re.search(r"constexpr int STATE = (\d+);", src).group(1)) == kernels.MASK_STATE_WORDS
+    assert "H > 0xffff || W > 0xffff" in src and kernels.MASK_MAX_DIM == 0xFFFF
     assert "_mask_bbox" in src and "_sparse_words" in src and "_compact_words" in src
     # The largest map users run (3440x1440 -> 1096 x 2194) fits with room to spare.
     assert 1096 * tpp.sparse_word_pad((2194 + 7) // 8) // 4 < kernels.MASK_WORDS_MAX
+    assert kernels.mask_tiles(1096, 2194) <= kernels.MASK_MAX_TILES // 8
+
+
+@pytest.mark.parametrize("h,w,tiles", [(822, 986, 13), (1644, 1972, 50), (556, 250, 3), (1, 1, 1),
+                                       (1096, 2194, 38), (5, 32768, 3), (5, 65535, 5), (65535, 8, 32),
+                                       (65536, 8, None), (8, 65536, None), (5000, 65535, None)])
+def test_mask_tiles_are_whole_rows_of_at_most_the_tile_words(h, w, tiles):
+    """mask_tiles mirrors smh_mask_words_tiles: a tile is the most whole
+    rows of at most MASK_TILE_WORDS words; a frame of more than
+    MASK_MAX_DIM rows or columns or of more than MASK_MAX_TILES tiles is
+    not taken (None)."""
+    assert kernels.mask_tiles(h, w) == tiles
+
+
+@pytest.mark.parametrize("variant", sorted(probe_mask_words.VARIANTS))
+def test_probe_patches_apply(variant):
+    """Each variant, ablation and chain step of probe_mask_words applies to
+    the source as it is, and changes it (except the unpatched build)."""
+    patches = list(probe_mask_words.VARIANTS[variant][0])
+    src = _probe.patched(CSRC, ("mask_words.cu",), {"mask_words.cu": patches})["mask_words.cu"]
+    assert (src == (CSRC / "mask_words.cu").read_text()) == (not patches)
+    assert "smh_mask_words" in src and "__global__" in src
