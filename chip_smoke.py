@@ -75,10 +75,29 @@ each printing a line, each failing loudly:
                = 1, 3 and 8 planes of one buffer (== the per-frame kernel);
                one launch per call; timed at both map shapes and at B = 8
                beside its bound (its chain floor: probe_mask_words);
-     repeated — kernels 6 and 7, 100 calls each in turns over shapes, batch
-               sizes and budgets (every tenth on a second stream), each ==
-               its plain twin: the scratch each keeps between launches
-               comes back clean;
+     delta_apply — kernel 8, the delta apply, against its plain twin
+               (every byte of every row; the resident buffer unchanged) at
+               the 1080p and 4K frames' buffers: no change (one repeated
+               index), chunk 0, the last chunk, every chunk, 1000 chunks
+               padded by repeats, the ladder's top bucket, and chains of B
+               = 1, 3 and 8 frames (chunk 40 written by frames 0 and 2);
+               one launch per call, no memset (profiler); timed per frame
+               and at B = 8 beside its bound, its plain twin (the eager
+               copy and index_copy_ it replaced) and torch.index_copy;
+     hostpack — kernel 9, the ui checksum, the red gate and the hostpack,
+               against its plain twin (every byte): all-255 4K planes (the
+               weighted u32 sum wraps), gray and colour, 1-row, 1-column,
+               unaligned and interleaved planes, the button shapes of the
+               seven screen sizes and 4K with 0, 1, n - 1 and n red pixels,
+               the table of every route of the fused pass (recorded from
+               the pass on the card) and of the batch routes at B = 1, 3
+               and 8; one launch per call, no memset; timed on the main
+               path's table at 1080p, 4K and B = 8 beside its bound, its
+               plain twin and torch.cat of the parts;
+     repeated — kernels 6, 7 and 9, 100 calls each in turns over shapes,
+               batch sizes and budgets (every tenth on a second stream),
+               each == its plain twin: the scratch each keeps between
+               launches comes back clean;
   4. slice   — the port's VisionState on 1080p and 4K frames with a marker
                line and a "300m" scale: markers, ratio and minimap against
                the numpy oracle, the on-device scales read, every kernel
@@ -104,8 +123,9 @@ each printing a line, each failing loudly:
                device read with the native and the cuda LSD engine (and
                the latter's ray_march launches per frame), and a
                Tesseract-flagged engine on a static frame and over the drag;
-               CUDA launches and device time per sync frame (profiler), one
-               launch of each kernel of the pass;
+               CUDA launches (kernels and memset/copy rows) and device
+               time per sync frame (profiler), one launch of each kernel
+               of the pass and of the delta apply, at most 10 kernels;
   7. loop    — CaptureThread -> VisionLoop delivers an update;
   8. live    — the pipelined VisionLoop (delta upload, consume views, async
                fetch) over a cycling marker-drag sequence at 1080p and 4K,
@@ -129,8 +149,10 @@ each printing a line, each failing loudly:
  11. batch   — BatchPipeline(batch=8) with smhocr over the marker drag at
                1080p and 4K: a full batch, then delta batches; results equal
                to the per-frame VisionState's and to the oracle's; stream()
-               equals process(); CUDA launches per batch (profiler), H2D
-               bytes per batch, frames/s of process() and stream();
+               equals process(); CUDA launches per delta batch (profiler:
+               each kernel of the pass and the delta apply once, at most 10
+               kernels), H2D bytes per batch, frames/s of process() and
+               stream();
  12. mesh    — the multi-device path (smh_tpu_torch/parallel/) on a mesh
                of cuda:0 repeated (and of distinct cards where there are
                two or more): kernel 4 over a batch of masks (B = 1, 3, 8 at
@@ -174,6 +196,7 @@ JAX nor the JAX package smh_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import logging
@@ -215,6 +238,9 @@ EVERY_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "ma
 # [_SP_RUNG_DEFAULT]), which holds the verify frame's mask at 1080p and 4K.
 MASK_BUDGET = 1024
 CLASSIFY_OPS = {"classify_luma": (12, 30), "fused_mask": (10, 30)}
+# Kernels a sync delta frame and a delta batch may launch: the seven of the
+# pass, the delta apply and at most two more.
+MAX_KERNELS_PER_PASS = 10
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1171,11 +1197,316 @@ def phase_mask_words(dev: torch.device) -> dict:
     }
 
 
+def padded_table(chunks: np.ndarray, data: np.ndarray, bucket: int) -> tuple:
+    """A bucket of sorted chunk indices padded by repeating the last one
+    with its data, as the host's diff pads it."""
+    n = chunks.size
+    idx = np.concatenate([chunks, np.full(bucket - n, chunks[-1])]).astype(np.int32)
+    return idx, np.concatenate([data, np.repeat(data[-1:], bucket - n, axis=0)])
+
+
+def delta_upload(tables: list, datas: list) -> np.ndarray:
+    """B index tables, then B blocks of chunks: one u8 delta upload."""
+    idx = np.stack(tables).astype(np.int32)
+    return np.concatenate([idx.reshape(-1).view(np.uint8), np.stack(datas).reshape(-1)])
+
+
+def delta_chain(rng, n_sub: int, bsz: int, bucket: int, changed: int) -> np.ndarray:
+    """A batch's upload: frame f changes `changed` random chunks (sorted),
+    chunk 40 among them in frames 0 and 2 with different data."""
+    from smh_tpu_torch.vision.cuda_backend import _DELTA_SUB
+
+    tables, datas = [], []
+    for f in range(bsz):
+        chunks = np.sort(rng.choice(n_sub, size=changed, replace=False))
+        if f in (0, 2):
+            chunks = np.union1d(chunks[:-1], [40])
+        idx, dat = padded_table(chunks, rng.integers(0, 256, (chunks.size, _DELTA_SUB), dtype=np.uint8), bucket)
+        tables.append(idx)
+        datas.append(dat)
+    return delta_upload(tables, datas)
+
+
+def frame_bytes(w: int, h: int) -> int:
+    """A frame's flat upload at a screen size, padded to the delta chunk."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch.vision.cuda_backend import _DELTA_CHUNK
+
+    gm = C.map_geometry(w, h)
+    return -(-(gm.map_h * gm.map_w + gm.btn_h * gm.btn_w) * 3 // _DELTA_CHUNK) * _DELTA_CHUNK
+
+
+DELTA_TIMED = (2000, 2048)  # (changed chunks, bucket) of the timed delta uploads
+
+
+def phase_delta_apply(dev: torch.device) -> dict:
+    """Kernel 8 (csrc/delta_apply.cu), the delta apply, bit-equal to its
+    plain twin on the card, every byte of every row, with the resident
+    buffer unchanged: at the 1080p and 4K frames' buffers, no change (one
+    repeated index), chunk 0, the last chunk, every chunk, 1000 chunks
+    padded by repeats, a bucket at the top of the ladder, and chains of B =
+    1, 3 and 8 frames with chunk 40 written by frames 0 and 2; one launch
+    per call and no memset (profiler). Timed per frame at both sizes and
+    for B = 8 at 1080p beside its bound, its plain twin (the eager copy and
+    index_copy_ it replaced) and torch.index_copy."""
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    rng = np.random.default_rng(21)
+    sub = cb._DELTA_SUB
+    calls = 0
+
+    def check(resident: torch.Tensor, buf: torch.Tensor, bucket: int, label: str) -> torch.Tensor:
+        nonlocal calls
+        before, kept = K.LAUNCHES["delta_apply"], resident.clone()
+        got = K.delta_apply(resident, buf, bucket, sub)
+        require(K.LAUNCHES["delta_apply"] == before + 1, f"delta_apply: not one launch for {label}")
+        want = K.delta_apply_plain(resident, buf, bucket, sub)
+        if not torch.equal(got, want):
+            at = torch.nonzero(got != want)[:8].tolist()
+            raise RuntimeError(f"check failed: delta_apply kernel != plain ({label}) at {at}")
+        require(torch.equal(resident, kept), f"delta_apply wrote the resident buffer ({label})")
+        calls += 1
+        return got
+
+    inputs = {}
+    for w, h in LIVE_SIZES:
+        padded = frame_bytes(w, h)
+        n_sub = padded // sub
+        top = max(b for b in cb._DELTA_BUCKETS if b < n_sub * cb._DELTA_MAX_FRACTION)
+        base = rng.integers(0, 256, padded, dtype=np.uint8)
+        resident = torch.from_numpy(base).to(dev)
+
+        def rand(k: int) -> np.ndarray:
+            return rng.integers(0, 256, (k, sub), dtype=np.uint8)
+
+        def some(k: int) -> np.ndarray:
+            return np.sort(rng.choice(n_sub, size=k, replace=False))
+
+        cases = {
+            "no change": padded_table(np.array([7]), base.reshape(n_sub, sub)[7:8], 16),
+            "chunk 0": padded_table(np.array([0]), rand(1), 16),
+            "the last chunk": padded_table(np.array([n_sub - 1]), rand(1), 16),
+            "every chunk": (np.arange(n_sub, dtype=np.int32), rand(n_sub)),
+            "1000 chunks padded by repeats": padded_table(some(1000), rand(1000), 1024),
+            f"the ladder's top bucket {top}": padded_table(some(top - 17), rand(top - 17), top),
+        }
+        for name, (idx, dat) in cases.items():
+            buf = torch.from_numpy(delta_upload([idx], [dat])).to(dev)
+            got = check(resident, buf, idx.size, f"{w}x{h} {name}")
+            if name == "no change":
+                require(torch.equal(got[0], resident), f"delta_apply changed a frame with no change at {w}x{h}")
+        for bsz in BATCH_SIZES:
+            buf = torch.from_numpy(delta_chain(rng, n_sub, bsz, 1024, 900)).to(dev)
+            got = check(resident, buf, 1024, f"{w}x{h} B={bsz}")
+            if bsz >= 3:
+                require(not torch.equal(got[0].view(n_sub, sub)[40], got[2].view(n_sub, sub)[40]),
+                        "chunk 40 of frames 0 and 2")
+        changed, bucket = DELTA_TIMED
+        idx, dat = padded_table(some(changed), rand(changed), bucket)
+        inputs[h] = (resident, torch.from_numpy(delta_upload([idx], [dat])).to(dev), bucket, padded)
+        if h == 1080:
+            inputs["b8"] = (resident, torch.from_numpy(delta_chain(rng, n_sub, BATCH, bucket, changed)).to(dev),
+                            bucket, padded)
+        print(f"delta_apply: {w}x{h} ({padded} B, {n_sub} chunks): kernel == plain, every byte, resident unchanged, "
+              f"on {sorted(cases)} and chains of B = {BATCH_SIZES} (chunk 40 by frames 0 and 2)", flush=True)
+
+    times = {}
+    for key, (resident, buf, bucket, padded) in inputs.items():
+        bsz = buf.numel() // (bucket * (4 + sub))
+        prof = device_profile(lambda: K.delta_apply(resident, buf, bucket, sub), names=("delta_apply",))
+        require(prof["launches"] == 1.0 and prof["named"]["delta_apply"] == 1.0,
+                f"delta_apply {key}: {prof['launches']} CUDA rows per call (a memset?)")
+        idx64 = buf[: 4 * bucket].view(torch.int32).to(torch.int64)
+        rows2d, data = resident.view(-1, sub), buf[4 * bucket * bsz :].view(bsz, bucket, sub)[0]
+        times[key] = {
+            "ms": cuda_ms(lambda: K.delta_apply(resident, buf, bucket, sub)),
+            "plain_ms": cuda_ms(lambda: K.delta_apply_plain(resident, buf, bucket, sub), n=20),
+            "library_ms": cuda_ms(lambda: torch.index_copy(rows2d, 0, idx64, data)) if bsz == 1 else None,
+            "device_us": prof["named_us"]["delta_apply"],
+            **bound(padded * (1 + bsz) + buf.numel(), 0.0),
+        }
+        t = times[key]
+        print(f"delta_apply: {'B=8 at 1080p' if key == 'b8' else f'{key}p'} ({bsz} frame(s) of {padded} B, "
+              f"bucket {bucket}, {DELTA_TIMED[0]} changed chunks a frame): " + timing_line(t)
+              + (f"; torch.index_copy {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""), flush=True)
+    print(f"delta_apply: {calls} calls held against plain, every byte equal; one launch per call, no memset",
+          flush=True)
+    return {
+        "name": "delta_apply", "route": "cuda", "source": "smh_tpu_torch/csrc/delta_apply.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:1060", "max_abs_err": 0, **times[1080], "shape": "1080p frame",
+        "device_us_4k": times[2160]["device_us"], "device_us_b8": times["b8"]["device_us"],
+        "ms_b8": times["b8"]["ms"], "plain_ms_b8": times["b8"]["plain_ms"], "bound_ms_b8": times["b8"]["bound_ms"],
+    }
+
+
+@contextlib.contextmanager
+def recorded_tails():
+    """Records the inputs of every kernels.hostpack_tail call in the block
+    (the fused pass calls it through the module), into the yielded list."""
+    from smh_tpu_torch.ops import kernels as K
+
+    seen, real = [], K.hostpack_tail
+    K.hostpack_tail = lambda ui, btn, sections=(): (seen.append((ui, btn, list(sections))), real(ui, btn, sections))[1]
+    try:
+        yield seen
+    finally:
+        K.hostpack_tail = real
+
+
+# (scales transport, sparse budget, window crop as a share of the map, scales
+# band rows): every route's table of kernel 9
+TAIL_ROUTES = {
+    "device + sparse": ("device", MASK_BUDGET, None, None), "window + binary": ("binary", None, 2, None),
+    "binary band": ("binary", MASK_BUDGET, None, 48), "gray band": ("gray", MASK_BUDGET, None, 48),
+    "gray": ("gray", None, None, None), "none": ("none", None, None, None),
+}
+
+
+def phase_hostpack(dev: torch.device) -> dict:
+    """Kernel 9 (csrc/hostpack.cu), the ui checksum, the red gate and the
+    hostpack, bit-equal to its plain twin on the card, every byte: all-255
+    planes at the 4K map (the weighted u32 sum wraps), gray and colour; 1-row
+    and 1-column planes, planes 1-3 bytes past an aligned address and
+    interleaved (the mesh's colour ui); the button shapes of the seven
+    screen sizes and 4K with 0, 1, n - 1 and n button-red pixels; the table
+    of every route of the fused pass (recorded from the pass on the card,
+    gray and colour, at 1080p and 4K) and of the batch routes at B = 1, 3
+    and 8; one launch per call, no memset (profiler). Timed on the main
+    path's table at 1080p and 4K and at B = 8 beside its bound, its plain
+    twin (the eager ops it replaced) and torch.cat of the hostpack's parts."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+    from smh_tpu_torch.ops import scales_device as sd
+
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    rng = np.random.default_rng(23)
+    calls = 0
+    red = torch.tensor([49, 67, 217], dtype=torch.uint8, device=dev)  # BGR of the button
+
+    def check(ui, btn, sections, label: str) -> torch.Tensor:
+        nonlocal calls
+        before = K.LAUNCHES["hostpack"]
+        got = K.hostpack_tail(ui, btn, sections)
+        require(K.LAUNCHES["hostpack"] == before + 1, f"hostpack: not one launch for {label}")
+        want = K.hostpack_tail_plain(ui, btn, sections)
+        if not torch.equal(got, want):
+            at = torch.nonzero(got != want)[:8].tolist()
+            raise RuntimeError(f"check failed: hostpack kernel != plain ({label}) at {at}")
+        calls += 1
+        return got
+
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    btn = on_card(rng.integers(0, 256, (41, 255, 3), dtype=np.uint8))
+    full = torch.full((1644, 1972), 255, dtype=torch.uint8, device=dev)
+    for ui in ((full,), (full, full, full)):
+        got = check(ui, btn, [], f"all-255 1644x1972, {len(ui)} plane(s)")
+        require(got.numel() == 12, "the tail's head")
+    shapes = {"1 row": (1, 997), "1 column": (613, 1), "1080p map": (822, 986), "odd": (37, 53)}
+    for name, (h, w) in shapes.items():
+        planes = [on_card(rng.integers(0, 256, (h, w), dtype=np.uint8)) for _ in range(3)]
+        check(planes[:1], btn, [], f"{name} gray")
+        check(planes, btn, [], f"{name} colour")
+        for offset in (1, 2, 3):
+            flat = torch.zeros(3, h * w + offset, dtype=torch.uint8, device=dev)
+            flat[:, offset:] = torch.stack(planes).view(3, -1)
+            moved = [flat[c, offset:].view(h, w) for c in range(3)]
+            check(moved[:1], btn, [], f"{name} gray {offset} B past an aligned address")
+            check(moved, btn, [], f"{name} colour {offset} B past an aligned address")
+        rgb = torch.stack(planes, dim=-1)
+        check((rgb[..., 0], rgb[..., 1], rgb[..., 2]), btn, [], f"{name} interleaved colour")
+    for size in testing.RESOLUTIONS + ((3840, 2160),):
+        gm = C.map_geometry(*size)
+        n = gm.btn_h * gm.btn_w
+        for k in (0, 1, n - 1, n):
+            b = rng.integers(0, 256, (gm.btn_h, gm.btn_w, 3), dtype=np.uint8)
+            b[np.all(np.abs(b.astype(int) - (49, 67, 217)) <= C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE, axis=-1)] = 0
+            bt = on_card(b)
+            bt.view(-1, 3)[torch.randperm(n, device=dev)[:k]] = red
+            got = check((full[:5, :7],), bt, [], f"button {gm.btn_h}x{gm.btn_w} with {k} red")
+            want = np.float32(k) * (np.float32(1) / np.float32(n))
+            require(got[:4].cpu().numpy().view(np.float32)[0] == want, f"red share {k}/{n}")
+    print(f"hostpack: kernel == plain on all-255 4K planes (gray and colour), planes {sorted(shapes)} (gray, colour, "
+          f"1-3 B past an aligned address, interleaved) and the 8 screen sizes' buttons with 0, 1, n - 1, n red",
+          flush=True)
+
+    templates = sd.templates_to_device(sd.device_templates(), dev)
+    tables = {}
+    for w, h in LIVE_SIZES:
+        gm = C.map_geometry(w, h)
+        rows = torch.from_numpy(batch_rows(rng, BATCH, w, h)[0]).to(dev)
+        frame = frame_for(w, h)
+        mr = frame[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w]
+        br = frame[gm.btn_y : gm.btn_y + gm.btn_h, gm.btn_x : gm.btn_x + gm.btn_w]
+        flat = on_card(cb._pack_rois_bgr(mr, br, cb._DELTA_CHUNK))
+        geo = dict(map_h=gm.map_h, map_w=gm.map_w, btn_h=gm.btn_h, btn_w=gm.btn_w, templates=templates)
+        for route, (inline, sparse, crop, band) in TAIL_ROUTES.items():
+            cut = {} if crop is None else {"crop_h": gm.map_h // crop, "crop_w": gm.map_w // crop}
+            for gray in (True, False):
+                with recorded_tails() as seen:
+                    opp.analyze_packed_flat(flat, grayscale=gray, scales_inline=inline, sparse_budget=sparse,
+                                            scales_band=band, **cut, **geo)
+                require(len(seen) == 1, f"{route}: {len(seen)} tails a pass")
+                got = check(*seen[0], f"{w}x{h} {route} {'gray' if gray else 'colour'}")
+                layout = opp.hostpack_layout(gm.map_h, gm.map_w, scales_inline=inline, sparse_budget=sparse,
+                                             scales_band=band, **cut)
+                require(got.numel() == layout["__total__"], f"{route}: {got.numel()} B, layout {layout['__total__']}")
+                if route == "device + sparse" and gray:
+                    tables[h] = seen[0]
+            if band is not None:
+                continue
+            for bsz in BATCH_SIZES:
+                with recorded_tails() as seen:
+                    opp.analyze_batch_packed_flat(rows[:bsz], grayscale=True, scales_inline=inline,
+                                                  sparse_budget=sparse, **cut, **geo)
+                got = check(*seen[0], f"{w}x{h} {route} B={bsz}")
+                require(got.shape[0] == bsz, f"{route} B={bsz}: {tuple(got.shape)}")
+                if route == "device + sparse" and bsz == BATCH and h == 1080:
+                    tables["b8"] = seen[0]
+        print(f"hostpack: {w}x{h}: kernel == plain on the tables of {sorted(TAIL_ROUTES)} (gray and colour, the "
+              f"hostpack's size that of hostpack_layout) and of the batch routes at B = {BATCH_SIZES}", flush=True)
+
+    times = {}
+    for key, (ui, btn, sections) in tables.items():
+        prof = device_profile(lambda: K.hostpack_tail(ui, btn, sections), names=("hostpack",))
+        require(prof["launches"] == 1.0 and prof["named"]["hostpack"] == 1.0,
+                f"hostpack {key}: {prof['launches']} CUDA rows per call (a memset?)")
+        lead = tuple(ui[0].shape[:-2])
+        parts = [opp._bytes(opp._red_gate_roi(btn).reshape(*lead, 1), lead),
+                 opp._u32_bytes(opp._weighted_check(ui[0]), lead), *sections]
+        total = sum(p.shape[-1] for p in parts) * (lead[0] if lead else 1)
+        n_in = ui[0].numel() + btn.numel() + sum(s.numel() for s in sections)
+        times[key] = {
+            "ms": cuda_ms(lambda: K.hostpack_tail(ui, btn, sections)),
+            "plain_ms": cuda_ms(lambda: K.hostpack_tail_plain(ui, btn, sections), n=20),
+            "library_ms": cuda_ms(lambda: torch.cat(parts, dim=-1)),
+            "device_us": prof["named_us"]["hostpack"],
+            **bound(n_in + total, 3 * ui[0].numel() + 9 * btn.numel() // 3),
+        }
+        print(f"hostpack: the main path's table {'B=8 at 1080p' if key == 'b8' else f'at {key}p'} ({total} B of "
+              f"hostpack, {len(sections)} sections): " + timing_line(times[key])
+              + f"; torch.cat of the parts {times[key]['library_ms']:.4f} ms", flush=True)
+    print(f"hostpack: {calls} calls held against plain, every byte equal; one launch per call, no memset", flush=True)
+    return {
+        "name": "hostpack", "route": "cuda", "source": "smh_tpu_torch/csrc/hostpack.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:886", "max_abs_err": 0, **times[1080], "shape": "822x986 gray",
+        "device_us_4k": times[2160]["device_us"], "device_us_b8": times["b8"]["device_us"],
+        "ms_b8": times["b8"]["ms"], "plain_ms_b8": times["b8"]["plain_ms"],
+        "library_ms_b8": times["b8"]["library_ms"], "bound_ms_b8": times["b8"]["bound_ms"],
+    }
+
+
 def phase_repeated(dev: torch.device) -> None:
-    """Kernels 6 and 7 called 100 times each, in turns, alternating shapes,
-    batch sizes and budgets (every tenth call on a second stream, which has
-    a scratch of its own), each result held to its plain twin: the state
-    each kernel keeps between launches (its scratch) comes back clean."""
+    """Kernels 6, 7 and 9 called 100 times each, in turns, alternating
+    shapes, batch sizes and budgets (every tenth call on a second stream,
+    which has a scratch of its own), each result held to its plain twin:
+    the state each kernel keeps between launches (its scratch) comes back
+    clean."""
     from smh_tpu_torch import testing
     from smh_tpu_torch.ops import kernels as K
 
@@ -1206,22 +1537,37 @@ def phase_repeated(dev: torch.device) -> None:
            (8, 822, 986, 0.0005, 256), (1, 1644, 1972, 0.0005, 1024), (8, 822, 986, 0.0005, 2048),
            (1, 1644, 1972, 0.0005, 32768))]
     k7 = [(bits, w, budget, K.mask_bbox_sparse_plain(bits, w, budget)) for bits, w, budget in k7]
+
+    def tails(bsz: int, h: int, w: int, n_ui: int, bh: int, bw: int, sections: tuple) -> tuple:
+        lead = (bsz,) if bsz > 1 else ()
+        ui = tuple(torch.randint(0, 256, (*lead, h, w), dtype=torch.uint8, device=dev) for _ in range(n_ui))
+        btn = torch.randint(0, 256, (*lead, bh, bw, 3), dtype=torch.uint8, device=dev)
+        btn.view(-1, 3)[::3] = torch.tensor([49, 67, 217], dtype=torch.uint8, device=dev)
+        return ui, btn, [torch.randint(0, 256, (*lead, n), dtype=torch.uint8, device=dev) for n in sections]
+
+    k9 = [tails(*a) for a in ((1, 822, 986, 1, 41, 255, (24, 16, 1168, 16, 4, 4096, 4096)),
+                              (3, 74, 500, 3, 5, 7, (24, 13)), (1, 1644, 1972, 3, 83, 510, (24, 16, 1168, 16)),
+                              (8, 822, 986, 1, 41, 255, (24, 16, 1168, 16, 4, 8192, 8192)))]
+    k9 = [(args, K.hostpack_tail_plain(*args)) for args in k9]
     side = torch.cuda.Stream(dev)
     for i in range(100):
         planes, want6 = k6[i % len(k6)]
         bits, w, budget, want7 = k7[i % len(k7)]
         stream = side if i % 10 == 9 else torch.cuda.current_stream(dev)
         stream.wait_stream(torch.cuda.current_stream(dev))
+        args9, want9 = k9[i % len(k9)]
         with torch.cuda.stream(stream):
             got6 = K.brq_preprocess(*planes)
             got7 = K.mask_bbox_sparse(bits, w, budget)
+            got9 = K.hostpack_tail(*args9)
         torch.cuda.synchronize(dev)
+        require(torch.equal(got9, want9), f"repeated call {i}: hostpack != plain")
         for k, v in want6.items():
             require(torch.equal(got6[k], v), f"repeated call {i}: brq_preprocess {k} != plain")
         require(torch.equal(got7, want7), f"repeated call {i}: mask_words != plain (budget {budget})")
-    print(f"repeated: 100 calls each of brq_preprocess ({len(k6)} shapes and batch sizes in turn) and mask_words "
-          f"({len(k7)} shapes, batch sizes and budgets in turn), every tenth on a second stream, each == its plain "
-          f"twin", flush=True)
+    print(f"repeated: 100 calls each of brq_preprocess ({len(k6)} shapes and batch sizes in turn), mask_words "
+          f"({len(k7)} shapes, batch sizes and budgets in turn) and hostpack ({len(k9)} shapes, plane counts and "
+          f"batch sizes in turn), every tenth on a second stream, each == its plain twin", flush=True)
 
 
 def line_mask(h: int, w: int, lines) -> np.ndarray:
@@ -1625,7 +1971,8 @@ def phase_transports(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(K.LAUNCHES[n] > 0 for n in EVERY_PASS), f"transports skipped a kernel: {K.LAUNCHES}")
+            require(all(K.LAUNCHES[n] > 0 for n in EVERY_PASS + ("hostpack",)),
+                    f"transports skipped a kernel: {K.LAUNCHES}")
     print("transports: D2H bytes per frame " + json.dumps(d2h), flush=True)
     return launches
 
@@ -1783,7 +2130,8 @@ def phase_timing(dev: torch.device, card: str) -> None:
         named = ", ".join(f"{n} {per_frame['named'][n]:.1f} of {per_frame['named_us'][n]:.2f} us"
                           for n in per_frame["named"])
         print(f"timing: sync process() {w}x{h}: {per_frame['launches']:.1f} CUDA launches per frame "
-              f"({per_frame['kernels']:.1f} kernels, among them {named}), device busy "
+              f"({per_frame['kernels']:.1f} kernels and {per_frame['launches'] - per_frame['kernels']:.1f} "
+              f"memset/copy rows; among the kernels {named}), device busy "
               f"{per_frame['device_ms']:.3f} ms per frame (profiler, {per_frame['frames']} warm frames) on {card}",
               flush=True)
 
@@ -1796,10 +2144,12 @@ def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
 
     from smh_tpu_torch.ops import kernels as K
 
-    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=K.FUSED_PASS)
+    names = K.FUSED_PASS + K.DELTA_PASS  # a warm sync frame of a static scene is a delta frame
+    prof = device_profile(lambda: state.process(Frame(frame_np, 96)), n=frames, names=names)
     require(prof["launches"] > 0, "the profiler saw no device rows")
-    require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"not one launch of each kernel per sync frame: "
+    require(prof["named"] == {n: 1.0 for n in names}, f"not one launch of each kernel per sync frame: "
             f"{prof['named']}")
+    require(prof["kernels"] <= MAX_KERNELS_PER_PASS, f"{prof['kernels']} kernels per sync frame")
     return {"frames": frames, "launches": prof["launches"], "kernels": prof["kernels"], "named": prof["named"],
             "named_us": prof["named_us"], "device_ms": prof["us"] / 1e3}
 
@@ -1983,7 +2333,7 @@ def phase_live(dev: torch.device, card: str) -> dict:
                     bad = [i for _, i, _ in t_up if i < 0]
                     require(not bad, f"{label}: {len(bad)} updates outside the truth set")
                     require(len({i for _, i, _ in t_up}) >= DRAG_FRAMES // 2, f"{label}: low coverage")
-                    require(all(run[n] > 0 for n in K.FUSED_PASS), f"{label}: skipped a kernel {run}")
+                    require(all(run[n] > 0 for n in K.FUSED_PASS + K.DELTA_PASS), f"{label}: skipped a kernel {run}")
                     st = dict(be.stats)
                     require(st["full_uploads"] == 1 and st["delta_frames"] > 0,
                             f"{label}: not one full upload then deltas: {st}")
@@ -2274,7 +2624,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
             stats = dict(bp.stats)
             secs["checked"] = time.perf_counter() - t0
             t0 = time.perf_counter()
-            prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS, tries=6)
+            prof = device_profile(lambda: bp.process(batches[1]), n=1, names=K.FUSED_PASS + K.DELTA_PASS, tries=6)
             secs["profile"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             for batch in batches:
@@ -2292,7 +2642,10 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         for name, n in run.items():
             launches[name] += n
         require(all(run[n] == len(batches) for n in K.FUSED_PASS), f"{label}: not one launch per batch: {run}")
-        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS}, f"{label}: kernels 1-3 and 5-7 per batch (profiler) {prof}")
+        require(run["delta_apply"] == len(batches) - 1, f"{label}: not one delta_apply per delta batch: {run}")
+        require(prof["named"] == {n: 1.0 for n in K.FUSED_PASS + K.DELTA_PASS},
+                f"{label}: kernels 1-3 and 5-9 per delta batch (profiler) {prof}")
+        require(prof["kernels"] <= MAX_KERNELS_PER_PASS, f"{label}: {prof['kernels']} kernels per delta batch")
         require(stats["full_batches"] == 1 and stats["delta_batches"] == len(batches) - 1,
                 f"{label}: not a full batch, then deltas: {stats}")
         for bi, (batch, res) in enumerate(zip(batches, results)):
@@ -2305,7 +2658,7 @@ def phase_batch(dev: torch.device, card: str) -> dict:
         print(f"batch: {label} over {len(batches)} batches of the drag: results == the per-frame VisionState "
               f"(== the oracle within 1.5 px on frame 0), stream(depth=2) == process(); "
               f"{prof['kernels']:.0f} kernel launches + {prof['launches'] - prof['kernels']:.0f} memset/copy rows "
-              f"per delta batch (profiler; each kernel of the pass {prof['named']}), device "
+              f"per delta batch (profiler; each kernel of the pass and the delta apply {prof['named']}), device "
               f"{prof['kernel_us'] / 1e3:.3f} ms per batch; H2D bytes per batch {h2d} (full, then deltas); "
               f"process() {fps_process:.2f} frames/s, stream() {fps_stream:.2f} frames/s; stats t_* "
               f"{{{', '.join(f'{k} {v:.1f}' for k, v in stats.items() if k.startswith('t_'))}}} on {card}; "
@@ -2871,6 +3224,8 @@ def main() -> int:
     kernels["scales_read"] = timed_phase("scales_read", phase_scales_read, dev)
     kernels["brq_preprocess"] = timed_phase("brq_preprocess", phase_brq_preprocess, dev)
     kernels["mask_words"] = timed_phase("mask_words", phase_mask_words, dev)
+    kernels["delta_apply"] = timed_phase("delta_apply", phase_delta_apply, dev)
+    kernels["hostpack"] = timed_phase("hostpack", phase_hostpack, dev)
     timed_phase("repeated", phase_repeated, dev)
     # Before the traces of thousands of launches (phase_timing, phase_batch):
     # late in a run, short traces lost most of their records four times

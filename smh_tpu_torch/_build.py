@@ -76,6 +76,13 @@ _SIGNATURES = {
     # (bits, frame_stride (bytes), H, W, B, budget, scratch, scratch_words,
     #  out, stream)
     "smh_mask_words": [_VP, _I64, _I, _I, _I, _I, _VP, _I64, _VP, _VP],
+    # (resident, bytes, buf, bucket, chunk, B, out, stream)
+    "smh_delta_apply": [_VP, _I64, _VP, _I, _I, _I, _VP, _VP],
+    # (p0, p1, p2, n_planes, step, pitch, stride, h, w, btn, btn_stride,
+    #  btn_px, r, g, b, tol, table, n_sections, out, out_stride, red_off,
+    #  ui_off, B, scratch, stream); steps, pitches and strides in bytes
+    "smh_hostpack": [_VP, _VP, _VP, _I, _I64, _I64, _I64, _I, _I, _VP, _I64, _I, _I, _I, _I, _I, _VP, _I, _VP,
+                     _I64, _I, _I, _I, _VP, _VP],
 }
 
 _lock = threading.Lock()

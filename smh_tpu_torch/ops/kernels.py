@@ -1,14 +1,15 @@
 """The fused pass's hand-written CUDA kernels (all but the ray march and
 the scales read), their wrappers, their plain PyTorch twins, and the launch
-counts of all seven of the port's kernels (the fourth, the ray march, lives
+counts of all nine of the port's kernels (the fourth, the ray march, lives
 in ops/lsd.py; the fifth, the scales read, in ops/scales_device.py).
 
-Counterpart of smh_tpu/ops/pallas_kernels.py, and of the two regions of
-smh_tpu's jitted fused pass (smh_tpu/ops/pipeline.py::_analyze_flat_core)
-that kernels 6 and 7 take. Each wrapper takes the plain
-version for tensors on the CPU, launches its kernel for tensors on a CUDA
-device, and raises for anything else: there is no fallback from the kernel
-to the plain version and no switch that bypasses the kernel. `LAUNCHES`
+Counterpart of smh_tpu/ops/pallas_kernels.py, of the regions of smh_tpu's
+jitted fused pass (smh_tpu/ops/pipeline.py::_analyze_flat_core) that
+kernels 6, 7 and 9 take, and of the delta dispatches' scatter (kernel 8).
+Each wrapper takes the plain version for tensors on the CPU, launches its
+kernel for tensors on a CUDA device, and raises for anything else: there
+is no fallback from the kernel to the plain version and no switch that
+bypasses the kernel. `LAUNCHES`
 counts kernel launches (and nothing else), so a run can show that the main
 path went through the kernels.
 
@@ -83,6 +84,23 @@ they compute each frame's plain result.
   the launch and the scan across blocks: a tile of whole rows a block
   (mask_tiles), the tiles joined by a decoupled look-back through a
   scratch that every launch leaves zeroed (_scratch).
+* delta_apply -> csrc/delta_apply.cu (kernel 8)
+  Replaces the scatter of smh_tpu's delta dispatches (XLA ops):
+  _analyze_delta_flat's `.at[idx].set(data)` and the lax.scan of
+  _analyze_batch_delta, which applies each frame's chunks to the frame
+  before. Writes a fresh [B, padded] buffer whose row i is row i - 1 (row
+  -1: the resident buffer, never written) with frame i's chunks applied.
+  Bound by bytes (the resident read once, each row written once): a block a
+  tile of 16-byte pieces kept in registers down the chain, each frame's
+  run of updates in the tile found by a search of its (non-decreasing)
+  index table, so no grid barrier and no memset.
+* hostpack_tail -> csrc/hostpack.cu (kernel 9)
+  Replaces the fused pass's tail (XLA ops): the ui checksum
+  _weighted_check(ui_flat), the red gate _red_gate_roi and the hostpack's
+  concatenation in _pack_outputs. Reads the ui plane(s) once, the button
+  and the sections the other kernels wrote, and writes every byte of the
+  hostpack; bound by the launch and one round trip of its reduction, which
+  sums in a scratch every launch leaves zeroed (_scratch), as kernel 6's.
 """
 
 from __future__ import annotations
@@ -98,13 +116,16 @@ from ..ocr.engine import OCR_BINARY_THRESHOLD
 
 LAUNCHES = {
     "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
-    "brq_preprocess": 0, "mask_words": 0,
+    "brq_preprocess": 0, "mask_words": 0, "delta_apply": 0, "hostpack": 0,
 }
 # The kernels every smhocr fused pass launches (ray_march runs on the
 # lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march; the
 # scales read runs where the pass reads the scales on the device, i.e.
 # under smhocr: scales_inline="device").
-FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "mask_words", "scales_read")
+FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "mask_words", "scales_read", "hostpack")
+# The kernel a delta pass launches besides (a full upload has none): one a
+# frame, one a batch.
+DELTA_PASS = ("delta_apply",)
 
 # Tile of the quiet-walk kernel (TH rows x TW pixels in csrc/quiet_walk.cu):
 # the seams the tests and the chip smoke place their shapes around.
@@ -137,6 +158,12 @@ MASK_MAX_DIM = 0xFFFF
 # The i32 lanes of kernel 7's output before its idx and dat: y0, y1, x0,
 # x1, the crop origin (0, 0) and nz.
 MASK_META = 7
+# Kernel 8 (csrc/delta_apply.cu): at most this many frames a launch.
+DELTA_MAX_FRAMES = 4096
+# Kernel 9 (csrc/hostpack.cu): at most this many sections a launch, and
+# the u32s of its scratch a frame (three u64 slots, a 128-byte line each).
+HOSTPACK_MAX_SECTIONS = 16
+HOSTPACK_SCRATCH = 3 * 32
 
 
 def reset_launches() -> None:
@@ -560,3 +587,182 @@ def mask_bbox_sparse(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
     _build.check(code, "smh_mask_words")
     LAUNCHES["mask_words"] += 1
     return out
+
+
+# -- kernel 8: the delta apply ---------------------------------------------------
+
+
+def _delta_tables(buf: torch.Tensor, bucket: int, chunk: int) -> tuple:
+    """(frames, index tables i32 [B, bucket], chunks u8 [B, bucket, chunk])
+    of a delta upload, or ValueError."""
+    per_frame = bucket * (4 + chunk)
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or bucket <= 0 or chunk <= 0 or buf.numel() == 0 \
+            or buf.numel() % per_frame:
+        raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold frames of {bucket} chunks of {chunk}")
+    bsz = buf.numel() // per_frame
+    return bsz, buf[: 4 * bucket * bsz].view(torch.int32).view(bsz, bucket), \
+        buf[4 * bucket * bsz :].view(bsz, bucket, chunk)
+
+
+def delta_apply_plain(resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int) -> torch.Tensor:
+    """Plain PyTorch twin of the delta apply kernel: a copy of the row
+    before and an index_copy_ of the frame's chunks, frame by frame (any
+    index order)."""
+    bsz, idxs, datas = _delta_tables(buf, bucket, chunk)
+    rows = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
+    prev = resident
+    for i in range(bsz):
+        rows[i].copy_(prev)
+        rows[i].view(-1, chunk).index_copy_(0, idxs[i].to(torch.int64), datas[i])
+        prev = rows[i]
+    return rows
+
+
+def delta_apply(resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int) -> torch.Tensor:
+    """The frames of a delta upload rebuilt on the device. resident: u8
+    [padded], the frame before (a multiple of `chunk` bytes; never
+    written); buf: u8, B index tables of `bucket` i32 chunk indices, then B
+    blocks of `bucket` chunks of `chunk` bytes -> a FRESH u8 [B, padded]
+    whose row i is row i - 1 (row -1: resident) with frame i's chunks
+    written over it (the chain of smh_tpu's _analyze_batch_delta; B = 1:
+    _analyze_delta_flat's scatter). One launch, no memset.
+
+    On a CUDA device each frame's indices must be NON-DECREASING (the
+    host's diff emits them in ascending order and pads a bucket by
+    repeating the last index with its data), and a duplicate index takes
+    its last entry's data; chunk must be a multiple of 16, and resident and
+    the upload's chunks 16-byte aligned. The plain twin (CPU tensors) takes
+    the indices in any order."""
+    bsz, _, _ = _delta_tables(buf, bucket, chunk)
+    if resident.dtype != torch.uint8 or resident.dim() != 1 or resident.numel() % chunk:
+        raise ValueError(f"resident of {resident.dtype} {tuple(resident.shape)} is not u8 chunks of {chunk}")
+    if resident.device != buf.device:
+        raise ValueError(f"resident on {resident.device}, upload on {buf.device}")
+    if resident.device.type == "cpu":
+        return delta_apply_plain(resident, buf, bucket, chunk)
+    if resident.device.type != "cuda":
+        raise ValueError(f"unsupported device {resident.device}")
+    if chunk % 16 or bsz > DELTA_MAX_FRAMES or not resident.is_contiguous() or not buf.is_contiguous() \
+            or (resident.data_ptr() | (buf.data_ptr() + 4 * bucket * bsz)) % 16:
+        raise ValueError(f"the kernel takes chunks of a multiple of 16 bytes at 16-byte aligned addresses and at "
+                         f"most {DELTA_MAX_FRAMES} frames: chunk {chunk}, {bsz} frames")
+    out = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
+    lib = _build.load()
+    with torch.cuda.device(resident.device):
+        code = lib.smh_delta_apply(resident.data_ptr(), resident.numel(), buf.data_ptr(), bucket, chunk, bsz,
+                                   out.data_ptr(), _stream_ptr(resident))
+    _build.check(code, "smh_delta_apply")
+    LAUNCHES["delta_apply"] += 1
+    return out
+
+
+# -- kernel 9: the ui checksum, the red gate and the hostpack ----------------------
+
+
+def _tail_inputs(ui_planes, btn, sections) -> tuple:
+    """The leading batch shape of kernel 9's inputs (() or (B,)), checked:
+    1 or 3 u8 [..., h, w] ui planes, an optional u8 [..., bh, bw, 3] button,
+    u8 [..., n] sections, all of that batch shape on one device."""
+    if len(ui_planes) not in (1, 3):
+        raise ValueError(f"{len(ui_planes)} ui planes: one (the luma) or three (r, g, b)")
+    first = ui_planes[0]
+    lead = tuple(first.shape[:-2])
+    if len(lead) > 1:
+        raise ValueError(f"ui planes of shape {tuple(first.shape)}: [h, w] or [B, h, w]")
+    for p in ui_planes:
+        if p.dtype != torch.uint8 or p.shape != first.shape or p.device != first.device or p.dim() < 2:
+            raise ValueError(f"ui planes must be u8 of one shape and device: {p.dtype} {tuple(p.shape)}")
+    if btn is not None and (btn.dtype != torch.uint8 or tuple(btn.shape[:-3]) != lead or btn.dim() < 3
+                            or btn.shape[-1] != 3 or btn.device != first.device):
+        raise ValueError(f"the button must be u8 [*{lead}, bh, bw, 3] on {first.device}: {btn.dtype} {tuple(btn.shape)}")
+    for t in sections:
+        if t.dtype != torch.uint8 or tuple(t.shape[:-1]) != lead or t.dim() != len(lead) + 1 or t.device != first.device:
+            raise ValueError(f"a section must be u8 [*{lead}, n] on {first.device}: {t.dtype} {tuple(t.shape)}")
+    return lead
+
+
+def hostpack_tail_plain(ui_planes, btn, sections=()) -> torch.Tensor:
+    """Plain PyTorch twin of the hostpack kernel: the eager _red_gate_roi,
+    _weighted_check of the luma (or of r + g + b) and torch.cat of their
+    bytes and the sections."""
+    from . import pipeline as opp
+
+    lead = tuple(ui_planes[0].shape[:-2])
+    if len(ui_planes) == 1:
+        ui_flat = ui_planes[0]
+    else:
+        ui_flat = ui_planes[0].to(torch.int32) + ui_planes[1].to(torch.int32) + ui_planes[2].to(torch.int32)
+    parts = [] if btn is None else [opp._bytes(opp._red_gate_roi(btn).reshape(*lead, 1), lead)]
+    parts += [opp._u32_bytes(opp._weighted_check(ui_flat), lead), *sections]
+    return torch.cat(parts, dim=-1)
+
+
+def hostpack_tail(ui_planes, btn, sections=()) -> torch.Tensor:
+    """The fused pass's tail in one launch -> u8 [..., 4 + 8 + sum of the
+    sections' bytes]: the red gate's f32 share of button-red pixels of btn
+    (u8 [..., bh, bw, 3] BGR; None leaves it and its 4 bytes out), the u32
+    sum and weighted sum of the ui plane (ui_planes: (luma,), or (r, g, b)
+    whose sum it takes; u8 [..., h, w], any strides shared by the three),
+    then each section's bytes (u8 [..., n], rows contiguous) in order: the
+    hostpack (hostpack_layout) when the sections are its others. A batch
+    ([B, ...] inputs) is one launch, its hostpacks the rows of [B, bytes].
+    No memset: the kernel writes every byte."""
+    sections = [t for t in sections if t.shape[-1] > 0]
+    lead = _tail_inputs(ui_planes, btn, sections)
+    first = ui_planes[0]
+    if first.device.type == "cpu":
+        return hostpack_tail_plain(ui_planes, btn, sections)
+    if first.device.type != "cuda":
+        raise ValueError(f"unsupported device {first.device}")
+    args, out, _alive = hostpack_args(ui_planes, btn, sections, lead)  # _alive: the table the args point at
+    lib = _build.load()
+    with torch.cuda.device(first.device):
+        code = lib.smh_hostpack(*args)
+    _build.check(code, "smh_hostpack")
+    LAUNCHES["hostpack"] += 1
+    return out
+
+
+def hostpack_args(ui_planes, btn, sections, lead: tuple) -> tuple:
+    """(the arguments of smh_hostpack, the fresh output, what must live
+    until the call returns) for checked CUDA inputs of leading shape
+    `lead` (hostpack_tail's; the kernel probe calls other builds with
+    them)."""
+    first = ui_planes[0]
+    if len(sections) > HOSTPACK_MAX_SECTIONS:
+        raise ValueError(f"{len(sections)} sections: the kernel takes at most {HOSTPACK_MAX_SECTIONS}")
+    bsz = lead[0] if lead else 1
+    h, w = first.shape[-2:]
+    steps = {(p.stride(-1), p.stride(-2), p.stride(0) if lead and bsz > 1 else 0) for p in ui_planes}
+    if len(steps) != 1:
+        raise ValueError(f"the ui planes differ in strides: {steps}")
+    step, pitch, stride = steps.pop()
+    if first.numel() == 0 or h > 0xFFFF or w > 0xFFFF or step < 1 or pitch < (w - 1) * step + 1:
+        raise ValueError(f"ui planes {tuple(first.shape)} of strides {first.stride()}: the kernel takes planes "
+                         f"of at most 65535 rows and columns")
+    table = []
+    off = 12 if btn is not None else 8
+    for t in sections:
+        if t.stride(-1) != 1:
+            raise ValueError(f"a section's bytes must be contiguous: strides {t.stride()}")
+        table += [t.data_ptr(), t.stride(0) if lead and bsz > 1 else 0, off, t.shape[-1]]
+        off += t.shape[-1]
+    bh = bw = 0
+    if btn is not None:
+        bh, bw = btn.shape[-3:-1]
+        if btn.stride(-1) != 1 or btn.stride(-2) != 3 or btn.stride(-3) != 3 * bw or bh * bw == 0:
+            raise ValueError(f"the button's pixels must be contiguous BGR: strides {btn.stride()}")
+    out = torch.empty((*lead, off), dtype=torch.uint8, device=first.device)
+    stream = _stream_ptr(first)
+    scratch = _scratch("hostpack", first.device, stream, HOSTPACK_SCRATCH * bsz)
+    rows = (ctypes.c_int64 * max(len(table), 1))(*table)
+    planes = [p.data_ptr() for p in ui_planes] * (3 // len(ui_planes))
+    r, g, b = (int(c) for c in C.CLOSE_DEPLOYMENT_BUTTON_COLOR)
+    args = (
+        *planes, len(ui_planes), step, pitch, stride, h, w,
+        None if btn is None else btn.data_ptr(), btn.stride(0) if btn is not None and lead and bsz > 1 else 0,
+        bh * bw, r, g, b, int(C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE), ctypes.addressof(rows), len(sections),
+        out.data_ptr(), off, 0 if btn is not None else -1, 4 if btn is not None else 0, bsz, scratch.data_ptr(),
+        stream,
+    )
+    return args, out, (rows, scratch)

@@ -7,12 +7,13 @@ a row band). One call of `analyze_packed_flat` runs the whole device half of
 a frame: marker classify + luma (CUDA kernel 1), the dilated marker mask's
 bit plane (CUDA kernel 3), the OCR preprocess, scales binarize, text mask
 and their checksums over the map's bottom-right quadrant (CUDA kernel 6),
-the minimap rect (CUDA kernel 2), the red gate, the on-device scales read
-(CUDA kernel 5), the mask bbox and sparse word compaction (CUDA kernel 7)
-or the window crop, and the ui checksum — all packed into ONE u8 hostpack
-whose bytes equal the JAX package's hostpack. `analyze_delta_flat` first rebuilds
-the frame from a device-resident buffer and the changed 32 B chunks (the
-delta upload). `analyze_map_planar` is the debug re-pass, which also keeps
+the minimap rect (CUDA kernel 2), the on-device scales read (CUDA kernel
+5), the mask bbox and sparse word compaction (CUDA kernel 7) or the window
+crop, then the red gate and the ui checksum, written with every other
+section into ONE u8 hostpack (CUDA kernel 9) whose bytes equal the JAX
+package's hostpack. `analyze_delta_flat` first rebuilds the frame from a
+device-resident buffer and the changed 32 B chunks of the delta upload
+(CUDA kernel 8). `analyze_map_planar` is the debug re-pass, which also keeps
 the isolated marker pixels and the cropped quadrant.
 
 `analyze_batch_packed_flat` and `analyze_batch_delta_flat` run the same pass
@@ -359,7 +360,9 @@ def _analyze_map_planes(
     """The fused pass over the map ROI as BGR channel planes ([h, w] each,
     or [B, h, w] for a batch: each kernel then runs once for all frames).
     The dilated marker mask is kernel 3's bit plane "lsd_bits" (no bool
-    plane: unpack_bits_bool makes one where a consumer reads it). with_ocr
+    plane: unpack_bits_bool makes one where a consumer reads it).
+    "ui_planes" are the planes the ui checksum reads: kernel 1's luma, or
+    r, g and b whose sum it takes (kernel 9 sums them). with_ocr
     adds kernel 6's outputs over the bottom-right quadrant ("scalespack",
     "scales_bits", "ocr_img", "text", "sbool", "scheck"). with_isolated adds the debug views' planes: the map
     with non-marker pixels black and the bottom-right quadrant, both
@@ -369,11 +372,10 @@ def _analyze_map_planes(
 
     # ui_map: grayscale travels as the luma plane; colour re-interleaves.
     ui = luma if grayscale else torch.stack([r8, g8, b8], dim=-1)
-    ui_flat = luma if grayscale else r8.to(I32) + g8.to(I32) + b8.to(I32)
 
     out = {
         "ui": ui,
-        "ui_check": _weighted_check(ui_flat),
+        "ui_planes": (luma,) if grayscale else (r8, g8, b8),
         "lsd_bits": kernels.fused_mask_bits(r8, g8, b8),
     }
     if with_ocr:
@@ -405,9 +407,16 @@ def _row_band(plane: torch.Tensor, r0: torch.Tensor, rows: int) -> torch.Tensor:
     return sd._window(plane, r0.reshape(1), zero.reshape(1), rows, plane.shape[1])[0]
 
 
+def _ui_check(ui_planes) -> torch.Tensor:
+    """The ui checksum, [..., 2] u32 as int64 values < 2^32, of the ui
+    planes by kernel 9 with no button and no section (the entries whose
+    outputs carry it outside a hostpack)."""
+    return kernels.hostpack_tail(ui_planes, None).view(I32).to(I64) & U32_MASK
+
+
 def _pack_outputs(
     out: dict,
-    red: torch.Tensor,
+    btn: torch.Tensor,
     map_w: int,
     with_ocr: bool,
     with_quiet: bool,
@@ -423,7 +432,10 @@ def _pack_outputs(
     leading [B] dimension) the hostpacks are the rows of a [B, bytes]
     tensor. Kernel 7 reads kernel 3's bits of the map_w-wide mask once for
     its bbox (and, with a sparse budget, its sparse words), in the
-    hostpack's i32 bytes; the scalespack is kernel 6's buffer."""
+    hostpack's i32 bytes; the scalespack is kernel 6's buffer. Kernel 9
+    computes the red gate over btn (interleaved BGR u8 [..., bh, bw, 3])
+    and the ui checksum and writes them and every other section into the
+    hostpack, in one launch."""
     lsd_bits = out["lsd_bits"]
     *lead, map_h, _ = lsd_bits.shape
     lead = tuple(lead)
@@ -446,7 +458,7 @@ def _pack_outputs(
         cx0 = torch.clamp(words[..., 2] - margin, 0, map_w - crop_w)
         crop_bits = pack_bits(_window_at(unpack_bits_bool(lsd_bits, map_w), cy0, cx0, crop_h, crop_w))
         meta = _bytes(torch.cat([words[..., :4], torch.stack([cy0, cx0], dim=-1)], dim=-1), lead)
-    parts = [_bytes(red.reshape(*lead, 1), lead), _u32_bytes(out["ui_check"], lead), meta]
+    parts = [meta]  # after the red ratio and the ui checksum, which kernel 9 computes
     banded = with_ocr and scales_inline in ("binary", "gray") and scales_band is not None
     if banded and lead:
         raise ValueError("the scales row band is per frame")
@@ -486,7 +498,7 @@ def _pack_outputs(
     else:
         parts.append(crop_bits.reshape(*lead, -1))
     res = {
-        "hostpack": torch.cat(parts, dim=-1),
+        "hostpack": kernels.hostpack_tail(out["ui_planes"], btn, parts),
         "ui": out["ui"],
         "lsd_bits": out["lsd_bits"],  # full mask: the window/sparse-miss fallback
     }
@@ -529,7 +541,7 @@ def analyze_packed_flat(
         with_quiet=with_quiet,
     )
     return _pack_outputs(
-        out, _red_gate_roi(btn), map_w, with_ocr, with_quiet, scales_inline,
+        out, btn, map_w, with_ocr, with_quiet, scales_inline,
         sparse_budget=sparse_budget, templates=templates, crop_h=crop_h,
         crop_w=crop_w, scales_band=scales_band,
     )
@@ -540,20 +552,17 @@ def analyze_delta_flat(
 ) -> dict:
     """The delta-upload dispatch: `resident` is the previous frame's flat
     buffer on the device, `buf` the upload — `bucket` int32 chunk indices
-    then `bucket` chunks of `chunk` bytes. The new frame is scattered into
-    a FRESH buffer (clone, then `index_copy_`): a consume view of the
-    previous frame may still re-dispatch from `resident`, so it is never
-    written in place. Index padding repeats a real index with identical
-    data, so the duplicate writes leave one deterministic result. Returns
-    analyze_packed_flat's outputs (`kw` are its flags) plus "resident", the
-    new buffer. The JAX counterpart is
+    (non-decreasing: kernel 8's order) then `bucket` chunks of `chunk`
+    bytes. Kernel 8 writes the new frame into a FRESH buffer: a consume
+    view of the previous frame may still re-dispatch from `resident`, so it
+    is never written in place. Index padding repeats a real index with
+    identical data, so the duplicate writes leave one deterministic result.
+    Returns analyze_packed_flat's outputs (`kw` are its flags) plus
+    "resident", the new buffer. The JAX counterpart is
     smh_tpu.ops.pipeline._analyze_delta_flat(..., channels=3)."""
     if buf.dtype != torch.uint8 or buf.numel() != bucket * (4 + chunk):
         raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold {bucket} chunks of {chunk}")
-    idx = buf[: 4 * bucket].view(I32).to(I64)
-    data = buf[4 * bucket :].view(bucket, chunk)
-    rois = resident.clone()
-    rois.view(-1, chunk).index_copy_(0, idx, data)
+    rois = kernels.delta_apply(resident, buf, bucket, chunk)[0]
     out = analyze_packed_flat(rois, **kw)
     out["resident"] = rois
     return out
@@ -593,7 +602,7 @@ def analyze_batch_packed_flat(
     btn = rois[:, map_bytes : map_bytes + btn_h * btn_w * 3].view(bsz, btn_h, btn_w, 3)
     out = _analyze_map_planes(planes[:, 0], planes[:, 1], planes[:, 2], grayscale, with_ocr=with_ocr)
     packed = _pack_outputs(
-        out, _red_gate_roi(btn), map_w, with_ocr, True, scales_inline, sparse_budget=sparse_budget,
+        out, btn, map_w, with_ocr, True, scales_inline, sparse_budget=sparse_budget,
         templates=templates, crop_h=crop_h, crop_w=crop_w,
     )
     res = {"hostpack": packed["hostpack"], "lsd_bits": packed["lsd_bits"]}
@@ -608,29 +617,22 @@ def analyze_batch_delta_flat(
     resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int, **kw
 ) -> dict:
     """The batched delta pass: B frames as chunk updates against the
-    device-resident chain, `buf` = B index tables of `bucket` int32 then B
-    blocks of `bucket` chunks of `chunk` bytes. Frame i is frame i-1 (frame
-    0: `resident`) with its updates applied, in chain order, into the rows
-    of a FRESH [B, padded] buffer (`resident` is never written: a consume
-    view may still hold it); then analyze_batch_packed_flat (`kw` are its
-    flags) runs once over the rows. Returns its outputs plus "resident",
-    the last frame (the next batch's chain input). The JAX counterpart is
-    smh_tpu.ops.pipeline._analyze_batch_delta(..., channels=3), whose
-    lax.scan this loop of two copies per frame replaces."""
-    per_frame = bucket * (4 + chunk)
-    if buf.dtype != torch.uint8 or buf.numel() == 0 or buf.numel() % per_frame:
-        raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold frames of {bucket} chunks of {chunk}")
-    bsz = buf.numel() // per_frame
-    idxs = buf[: 4 * bucket * bsz].view(I32).to(I64).view(bsz, bucket)
-    datas = buf[4 * bucket * bsz :].view(bsz, bucket, chunk)
-    rois = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
-    prev = resident
-    for i in range(bsz):
-        rois[i].copy_(prev)
-        rois[i].view(-1, chunk).index_copy_(0, idxs[i], datas[i])
-        prev = rois[i]
+    device-resident chain, `buf` = B index tables of `bucket` int32 (each
+    non-decreasing) then B blocks of `bucket` chunks of `chunk` bytes.
+    Kernel 8 writes frame i, frame i-1 (frame 0: `resident`) with its
+    updates applied, into row i of a FRESH [B, padded] buffer in one launch
+    (`resident` is never written: a consume view may still hold it); then
+    analyze_batch_packed_flat (`kw` are its flags) runs once over the rows.
+    Returns its outputs plus "resident", the last frame (the next batch's
+    chain input): a view of the last row, since nothing writes the rows
+    after the kernel. It keeps the batch's B rows alive until the next
+    batch replaces it, (B - 1) * padded bytes more than a copy would hold
+    (17 MB at the 1080p map and B = 8), and saves writing a copy. The JAX
+    counterpart is smh_tpu.ops.pipeline._analyze_batch_delta(...,
+    channels=3), whose lax.scan the kernel's chain replaces."""
+    rois = kernels.delta_apply(resident, buf, bucket, chunk)
     out = analyze_batch_packed_flat(rois, **kw)
-    out["resident"] = rois[bsz - 1].clone()
+    out["resident"] = rois[rois.shape[0] - 1]
     return out
 
 
@@ -638,9 +640,11 @@ def analyze_map_planar(planes: torch.Tensor, grayscale: bool = True, with_isolat
     """The fused pass over a plane-major BGR u8 [3, h, w] map ROI (the
     resident layout): the debug re-pass reads the resident buffer with no
     layout copy. The JAX counterpart is smh_tpu.ops.pipeline.analyze_map_planar."""
-    return _analyze_map_planes(
+    out = _analyze_map_planes(
         planes[0], planes[1], planes[2], grayscale, with_quiet=False, with_isolated=with_isolated,
     )
+    out["ui_check"] = _ui_check(out.pop("ui_planes"))
+    return out
 
 
 def analyze_map(map_bgra: torch.Tensor, grayscale: bool = True, with_isolated: bool = False) -> dict:
@@ -656,6 +660,7 @@ def analyze_map(map_bgra: torch.Tensor, grayscale: bool = True, with_isolated: b
     smh_tpu.ops.pipeline.analyze_map."""
     b8, g8, r8 = (map_bgra[..., c].contiguous() for c in range(3))
     out = _analyze_map_planes(b8, g8, r8, grayscale, with_quiet=False, with_isolated=with_isolated)
+    out["ui_check"] = _ui_check(out.pop("ui_planes"))
     for key in ("scalespack", "text", "scheck"):  # the hostpack's, not _analyze_map's
         del out[key]
     out["scales_bool"] = out.pop("sbool").view(torch.bool)

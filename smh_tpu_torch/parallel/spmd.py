@@ -158,11 +158,16 @@ def analyze_batch(frames, mesh: Mesh, grayscale: bool = True) -> dict:
         blocks = [_analyze_block(mine, r0, r1, g, dev, grayscale) for (r0, r1), dev in zip(splits, row)]
         joined = {k: torch.cat([blk[k].to(home) for blk in blocks], dim=1) for k in blocks[0]}
         ui = joined["ui"]
-        ui_flat = ui if grayscale else ui.to(torch.int32).sum(dim=-1)
-        joined["ui_check"] = opp._weighted_check(ui_flat)
         joined["lsd_mask"] = opp.mask_u8(joined["lsd_bool"])
         btn = mine[:, g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w, :3]
-        joined["red_ratio"] = opp._red_gate_roi(torch.from_numpy(np.ascontiguousarray(btn)).to(home))
+        # The red gate and the ui checksum by kernel 9 with no section: the
+        # 12 bytes of a hostpack's head.
+        head = kernels.hostpack_tail(
+            (ui,) if grayscale else (ui[..., 0], ui[..., 1], ui[..., 2]),
+            torch.from_numpy(np.ascontiguousarray(btn)).to(home),
+        )
+        joined["red_ratio"] = head[:, :4].view(torch.float32).reshape(-1)
+        joined["ui_check"] = head[:, 4:].view(torch.int32).to(torch.int64) & opp.U32_MASK
         for k, v in joined.items():
             out.setdefault(k, []).append(v)
     return out

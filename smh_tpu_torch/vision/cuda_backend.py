@@ -10,8 +10,9 @@ Implements the consume surface VisionState._process uses
     delta transport, smh_tpu/vision/tpu_backend.py's), else the full buffer;
   * dispatch stages the upload through pinned memory, copies it to the
     device without blocking, runs ONE `analyze_packed_flat` (or
-    `analyze_delta_flat`, which scatters the chunks into a fresh copy of the
-    resident buffer first; three CUDA kernels + PyTorch ops, one stream) and
+    `analyze_delta_flat`, whose kernel 8 first writes the resident buffer
+    with the chunks applied into a fresh one; CUDA kernels 1-3 and 5-9 and
+    a few PyTorch ops, one stream) and
     starts the hostpack's copy back into pinned memory, with a CUDA event
     recorded behind it;
   * snapshot_job freezes the dispatched frame as a consume view, so the
@@ -725,7 +726,7 @@ class CudaBackend:
         and the delta chain are shared by reference. VisionState consumes
         frame N on the view while load_frame/dispatch of frame N+1 rebind
         the live backend's fields, from another thread if it likes: submit
-        never writes a tensor a view holds (the delta scatter writes a fresh
+        never writes a tensor a view holds (the delta apply writes a fresh
         buffer) and consume writes only the view and the shared ints."""
         view = copy.copy(self)
         # The view never re-enters the submit half: the chain belongs to the
