@@ -1227,6 +1227,22 @@ def delta_chain(rng, n_sub: int, bsz: int, bucket: int, changed: int) -> np.ndar
     return delta_upload(tables, datas)
 
 
+def delta_in_order(resident: np.ndarray, tables: list, datas: list) -> np.ndarray:
+    """The rows of a delta upload by a numpy loop that applies each frame's
+    entries in table order to the row before (an index outside the frame
+    updates nothing): a duplicate index ends with its last entry's data."""
+    n_sub, sub = resident.size // datas[0].shape[1], datas[0].shape[1]
+    rows, prev = [], resident.reshape(n_sub, sub)
+    for idx, dat in zip(tables, datas):
+        row = prev.copy()
+        for j, c in enumerate(idx):
+            if 0 <= c < n_sub:
+                row[c] = dat[j]
+        rows.append(row.reshape(-1))
+        prev = row
+    return np.stack(rows)
+
+
 def frame_bytes(w: int, h: int) -> int:
     """A frame's flat upload at a screen size, padded to the delta chunk."""
     from smh_tpu_torch import consts as C
@@ -1245,10 +1261,15 @@ def phase_delta_apply(dev: torch.device) -> dict:
     buffer unchanged: at the 1080p and 4K frames' buffers, no change (one
     repeated index), chunk 0, the last chunk, every chunk, 1000 chunks
     padded by repeats, a bucket at the top of the ladder, and chains of B =
-    1, 3 and 8 frames with chunk 40 written by frames 0 and 2; one launch
-    per call and no memset (profiler). Timed per frame at both sizes and
-    for B = 8 at 1080p beside its bound, its plain twin (the eager copy and
-    index_copy_ it replaced) and torch.index_copy."""
+    1, 3 and 8 frames with chunk 40 written by frames 0 and 2; and equal to
+    a numpy loop that applies the entries in order (the twin's index_copy_
+    leaves duplicates unordered on the card) on runs across tile seams, an
+    index repeated with different data, one chunk padded by the top
+    bucket's repeats (131,071 at 4K), 2000 chunks padded to it, and one
+    chunk written by every frame of a chain of 8; one launch per call and no
+    memset (profiler). Timed per frame at both sizes and for B = 8 at 1080p
+    beside its bound, its plain twin (the eager copy and index_copy_ it
+    replaced) and torch.index_copy (its call and its device time)."""
     from smh_tpu_torch.ops import kernels as K
     from smh_tpu_torch.vision import cuda_backend as cb
 
@@ -1302,6 +1323,38 @@ def phase_delta_apply(dev: torch.device) -> dict:
             if bsz >= 3:
                 require(not torch.equal(got[0].view(n_sub, sub)[40], got[2].view(n_sub, sub)[40]),
                         "chunk 40 of frames 0 and 2")
+        # Against delta_in_order (index_copy_ on the card leaves duplicates
+        # unordered): runs across tile seams (a tile: 256 pieces of 16 B),
+        # an index repeated with different data in a frame, one chunk
+        # written by every frame of a chain, and the top bucket of repeats.
+        tile = 256 * 16 // sub
+        seams = np.unique(np.concatenate([np.arange(tile - 40, tile + 40), [2 * tile - 1, 2 * tile],
+                                          np.arange(n_sub - tile - 3, n_sub - tile + 3), [n_sub - 1]]))
+        repeated = np.sort(np.concatenate([some(301), [5 * tile - 1] * 4, [5 * tile] * 3]))  # 308: 16-byte aligned data
+        chain77 = []
+        for _ in range(BATCH):
+            chunks = np.union1d(some(200), [77])
+            chain77.append(padded_table(chunks, rand(chunks.size), 256))
+        ordered = {
+            "runs across tile seams": [padded_table(seams, rand(seams.size), 256)],
+            "an index repeated with different data": [(repeated.astype(np.int32), rand(repeated.size))],
+            f"one chunk padded by {top - 1} repeats of the top bucket {top}": [
+                padded_table(np.array([n_sub // 2]), rand(1), top)],
+            f"{DELTA_TIMED[0]} chunks padded to the top bucket {top}": [
+                padded_table(some(DELTA_TIMED[0]), rand(DELTA_TIMED[0]), top)],
+            f"chunk 77 written by every frame of {BATCH}": chain77,
+        }
+        for name, pairs in ordered.items():
+            tables, datas = [t for t, _ in pairs], [d for _, d in pairs]
+            buf = torch.from_numpy(delta_upload(tables, datas)).to(dev)
+            before, kept = K.LAUNCHES["delta_apply"], resident.clone()
+            got = K.delta_apply(resident, buf, tables[0].size, sub)
+            require(K.LAUNCHES["delta_apply"] == before + 1, f"delta_apply: not one launch for {name}")
+            want = delta_in_order(base, tables, datas)
+            if not np.array_equal(got.cpu().numpy(), want):
+                raise RuntimeError(f"check failed: delta_apply kernel != the in-order loop ({w}x{h} {name})")
+            require(torch.equal(resident, kept), f"delta_apply wrote the resident buffer ({name})")
+            calls += 1
         changed, bucket = DELTA_TIMED
         idx, dat = padded_table(some(changed), rand(changed), bucket)
         inputs[h] = (resident, torch.from_numpy(delta_upload([idx], [dat])).to(dev), bucket, padded)
@@ -1309,7 +1362,8 @@ def phase_delta_apply(dev: torch.device) -> dict:
             inputs["b8"] = (resident, torch.from_numpy(delta_chain(rng, n_sub, BATCH, bucket, changed)).to(dev),
                             bucket, padded)
         print(f"delta_apply: {w}x{h} ({padded} B, {n_sub} chunks): kernel == plain, every byte, resident unchanged, "
-              f"on {sorted(cases)} and chains of B = {BATCH_SIZES} (chunk 40 by frames 0 and 2)", flush=True)
+              f"on {sorted(cases)} and chains of B = {BATCH_SIZES} (chunk 40 by frames 0 and 2); == the in-order "
+              f"loop on {sorted(ordered)}", flush=True)
 
     times = {}
     for key, (resident, buf, bucket, padded) in inputs.items():
@@ -1319,19 +1373,25 @@ def phase_delta_apply(dev: torch.device) -> dict:
                 f"delta_apply {key}: {prof['launches']} CUDA rows per call (a memset?)")
         idx64 = buf[: 4 * bucket].view(torch.int32).to(torch.int64)
         rows2d, data = resident.view(-1, sub), buf[4 * bucket * bsz :].view(bsz, bucket, sub)[0]
+
+        def library():
+            return torch.index_copy(rows2d, 0, idx64, data)
+
         times[key] = {
             "ms": cuda_ms(lambda: K.delta_apply(resident, buf, bucket, sub)),
             "plain_ms": cuda_ms(lambda: K.delta_apply_plain(resident, buf, bucket, sub), n=20),
-            "library_ms": cuda_ms(lambda: torch.index_copy(rows2d, 0, idx64, data)) if bsz == 1 else None,
+            "library_ms": cuda_ms(library) if bsz == 1 else None,
+            "library_device_us": device_profile(library)["us"] if bsz == 1 else None,
             "device_us": prof["named_us"]["delta_apply"],
             **bound(padded * (1 + bsz) + buf.numel(), 0.0),
         }
         t = times[key]
         print(f"delta_apply: {'B=8 at 1080p' if key == 'b8' else f'{key}p'} ({bsz} frame(s) of {padded} B, "
               f"bucket {bucket}, {DELTA_TIMED[0]} changed chunks a frame): " + timing_line(t)
-              + (f"; torch.index_copy {t['library_ms']:.4f} ms" if t["library_ms"] is not None else ""), flush=True)
-    print(f"delta_apply: {calls} calls held against plain, every byte equal; one launch per call, no memset",
-          flush=True)
+              + (f"; torch.index_copy {t['library_ms']:.4f} ms (device {t['library_device_us']:.2f} us per call)"
+                 if t["library_ms"] is not None else ""), flush=True)
+    print(f"delta_apply: {calls} calls held against plain or the in-order loop, every byte equal; one launch per "
+          f"call, no memset", flush=True)
     return {
         "name": "delta_apply", "route": "cuda", "source": "smh_tpu_torch/csrc/delta_apply.cu",
         "replaces": "smh_tpu/ops/pipeline.py:1060", "max_abs_err": 0, **times[1080], "shape": "1080p frame",
@@ -1372,9 +1432,12 @@ def phase_hostpack(dev: torch.device) -> dict:
     screen sizes and 4K with 0, 1, n - 1 and n button-red pixels; the table
     of every route of the fused pass (recorded from the pass on the card,
     gray and colour, at 1080p and 4K) and of the batch routes at B = 1, 3
-    and 8; one launch per call, no memset (profiler). Timed on the main
-    path's table at 1080p and 4K and at B = 8 beside its bound, its plain
-    twin (the eager ops it replaced) and torch.cat of the hostpack's parts."""
+    and 8, then every one of those tables twice over in a shuffled order
+    (the wrapper's plans, built once per shapes and strides, across changes
+    of route, shape and batch size); one launch per call, no memset
+    (profiler). Timed on the main path's table at 1080p and 4K and at B = 8
+    beside its bound, its plain twin (the eager ops it replaced) and
+    torch.cat of the hostpack's parts."""
     from smh_tpu_torch import consts as C
     from smh_tpu_torch import testing
     from smh_tpu_torch.ops import kernels as K
@@ -1436,7 +1499,7 @@ def phase_hostpack(dev: torch.device) -> dict:
           flush=True)
 
     templates = sd.templates_to_device(sd.device_templates(), dev)
-    tables = {}
+    tables, every = {}, []
     for w, h in LIVE_SIZES:
         gm = C.map_geometry(w, h)
         rows = torch.from_numpy(batch_rows(rng, BATCH, w, h)[0]).to(dev)
@@ -1452,7 +1515,8 @@ def phase_hostpack(dev: torch.device) -> dict:
                     opp.analyze_packed_flat(flat, grayscale=gray, scales_inline=inline, sparse_budget=sparse,
                                             scales_band=band, **cut, **geo)
                 require(len(seen) == 1, f"{route}: {len(seen)} tails a pass")
-                got = check(*seen[0], f"{w}x{h} {route} {'gray' if gray else 'colour'}")
+                every.append((seen[0], f"{w}x{h} {route} {'gray' if gray else 'colour'}"))
+                got = check(*seen[0], every[-1][1])
                 layout = opp.hostpack_layout(gm.map_h, gm.map_w, scales_inline=inline, sparse_budget=sparse,
                                              scales_band=band, **cut)
                 require(got.numel() == layout["__total__"], f"{route}: {got.numel()} B, layout {layout['__total__']}")
@@ -1464,12 +1528,22 @@ def phase_hostpack(dev: torch.device) -> dict:
                 with recorded_tails() as seen:
                     opp.analyze_batch_packed_flat(rows[:bsz], grayscale=True, scales_inline=inline,
                                                   sparse_budget=sparse, **cut, **geo)
-                got = check(*seen[0], f"{w}x{h} {route} B={bsz}")
+                every.append((seen[0], f"{w}x{h} {route} B={bsz}"))
+                got = check(*seen[0], every[-1][1])
                 require(got.shape[0] == bsz, f"{route} B={bsz}: {tuple(got.shape)}")
                 if route == "device + sparse" and bsz == BATCH and h == 1080:
                     tables["b8"] = seen[0]
         print(f"hostpack: {w}x{h}: kernel == plain on the tables of {sorted(TAIL_ROUTES)} (gray and colour, the "
               f"hostpack's size that of hostpack_layout) and of the batch routes at B = {BATCH_SIZES}", flush=True)
+
+    # The plans (each call's table and offsets, reused by shapes and strides)
+    # across changes of route, shape and batch: every recorded table twice
+    # over in a shuffled order, each call == its twin.
+    for k in np.concatenate([rng.permutation(len(every)), rng.permutation(len(every))]):
+        check(*every[k][0], f"{every[k][1]} among the other routes and shapes")
+    plans = {id(K.hostpack_plan_for(*tail)) for tail, _label in every}
+    print(f"hostpack: {2 * len(every)} calls over the {len(every)} tables in a shuffled order (routes, shapes and "
+          f"batch sizes changing call to call), each == plain; {len(plans)} plans", flush=True)
 
     times = {}
     for key, (ui, btn, sections) in tables.items():

@@ -176,8 +176,11 @@ def build() -> pathlib.Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
+    """The kernel library, built on first call (and found with no lock
+    after it)."""
     global _lib
+    if _lib is not None:
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))

@@ -64,3 +64,73 @@ def build(builds: dict, sources, ptxas_of: str | None = None) -> dict:
             fn.restype = ctypes.c_int
         libs[name] = lib
     return libs
+
+
+# A timeline of a kernel: clock64() of thread 0 of every block at named
+# points of its source (each stamp after a value it names has arrived, so a
+# load's wait lands before the stamp), into a device array that
+# smh_probe_timeline copies out. Clocks are per SM: only differences within a
+# block mean anything.
+TIMELINE_BLOCKS = 16384
+_TIMELINE_HEAD = """
+__device__ long long probe_tl[{blocks} * {stamps}];  // probe
+
+// Stamp k of this block, once `dep` has arrived (the mov reads it).
+__device__ __forceinline__ void probe_stamp(int k, unsigned dep) {{
+  unsigned sink;
+  asm volatile("mov.b32 %0, %1;" : "=r"(sink) : "r"(dep));
+  const long long blk = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  if (blk < {blocks}) probe_tl[blk * {stamps} + k] = clock64();
+}}
+
+extern "C" int smh_probe_timeline(void* dst, long long bytes, void* stream) {{
+  return (int)cudaMemcpyFromSymbolAsync(dst, probe_tl, bytes, 0, cudaMemcpyDeviceToDevice,
+                                        static_cast<cudaStream_t>(stream));
+}}
+
+extern "C" int smh_probe_timeline_clear(void* stream) {{
+  void* at = nullptr;
+  const cudaError_t err = cudaGetSymbolAddress(&at, probe_tl);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemsetAsync(at, 0, sizeof(probe_tl), static_cast<cudaStream_t>(stream));
+}}
+"""
+
+
+def timeline_patches(anchor: str, stamps) -> list:
+    """Patches that add the timeline to a source: its head after `anchor`
+    (text that ends the source's includes), then for each (text, k, dep) of
+    `stamps` the stamp k of thread 0 inserted before `text`, once the u32
+    `dep` has arrived."""
+    head = _TIMELINE_HEAD.format(blocks=TIMELINE_BLOCKS, stamps=len(stamps))
+    return [(anchor, anchor + head)] + [
+        (text, f"  if (threadIdx.x == 0) probe_stamp({k}, (unsigned)({dep}));  // probe\n" + text)
+        for text, k, dep in stamps]
+
+
+def timeline_of(lib, call, n_stamps: int, device) -> "torch.Tensor":
+    """The stamps of one call() of a timeline build: int64 [blocks, n_stamps]
+    (clock64 values of each block's thread 0; the blocks that stamped
+    every point)."""
+    import torch
+
+    stream = torch.cuda.current_stream(device).cuda_stream
+    lib.smh_probe_timeline.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    lib.smh_probe_timeline_clear.argtypes = [ctypes.c_void_p]
+    _build.check(lib.smh_probe_timeline_clear(stream), "smh_probe_timeline_clear")
+    call()
+    out = torch.empty((TIMELINE_BLOCKS, n_stamps), dtype=torch.int64, device=device)
+    _build.check(lib.smh_probe_timeline(out.data_ptr(), out.numel() * 8, stream), "smh_probe_timeline")
+    out = out.cpu()
+    return out[(out != 0).all(dim=1)]
+
+
+def timeline_summary(stamps, names) -> dict:
+    """{phase: [median, max] cycles over the blocks} for the phases between
+    consecutive stamps (names[k]: the phase that ends at stamp k + 1), and
+    "total": the first stamp to the last."""
+    d = (stamps[:, 1:] - stamps[:, :-1]).double()
+    out = {name: [float(d[:, k].median()), float(d[:, k].max())] for k, name in enumerate(names)}
+    total = (stamps[:, -1] - stamps[:, 0]).double()
+    out["total"] = [float(total.median()), float(total.max())]
+    return out

@@ -36,11 +36,30 @@
 //
 // What bounds it on an H100: its bytes, the resident read once and each
 // row written once (2.46 MB + B rows of 2.46 MB at the 1080p map, ~1.5 us a
-// frame at 3.35 TB/s), and for a small upload the launch and the search's
-// chain of dependent loads. Measured (chip_smoke.py, PERF.md): 3.1 us at
-// the 1080p buffer, 6.4 at 4K, 9.9 for a chain of 8 at 1080p (bounds 1.5 /
+// frame at 3.35 TB/s), and for a small upload the launch and its chain of
+// dependent loads: the bound search's three steps and each thread's search
+// of its chunk (a clock64 timeline of every block, probe_delta_apply.py:
+// ~2100 and ~1250 cycles at the 1080p buffer, under the tile's bytes,
+// against ~260 for an idle load). Measured (chip_smoke.py and
+// probe_delta_apply.py, NVIDIA H100 80GB HBM3, PERF.md): 3.1 us at the
+// 1080p buffer, 6.4 at 4K, 9.8-9.9 for a chain of 8 at 1080p (bounds 1.5 /
 // 5.9 / 6.8); in the sync frame 2.8 / 4.8, under the 4K bound, as the
-// resident buffer the frame before wrote is still in the 50 MB L2.
+// resident buffer the frame before wrote is still in the 50 MB L2. The
+// designs that lost to this one in turns (us at 1080p / 4K / the chain of
+// 8): a block-wide 256-way search and a walk of the run into a shared map
+// of the tile's chunks, every frame's data load at once, 3.8 / 10.3 / 12.1
+// (256 scattered loads a step waited behind the tile's bytes, and at 4K
+// three waves of blocks each paid the chain); that with 4 pieces a thread
+// and every row's resident bytes stored before the chain, 4.7 / 10.2 /
+// 14.0; one warp a frame for both bounds with 64 samples a step and the
+// entries' searches in lockstep, 3.4 / 8.2 / 12.1; these searches with the
+// table's last index from their first step and all frames' searches
+// before one barrier, then each frame's entry and rounds of 4 frames' data
+// loads, 3.2-3.3 / 6.7-6.9 / 10.6-10.7 (the padded top bucket at 4K
+// 7.4-7.7 against this design's 9.0); this design with one warp's search
+// of where a run's repeats begin in a tile whose run outgrows its chunks,
+// 3.3 / 7.4 / 10.4, the padded top bucket 8.7 (against 8.9): the added
+// code cost more than the search it saved, even with the search off.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

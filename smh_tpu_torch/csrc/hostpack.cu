@@ -57,9 +57,21 @@
 // 10.3; every load of a thread's first share issued before any use, the
 // table's loops unrolled, 5.7 / 7.7 / 11.2 (more code, slower); the table a
 // __grid_constant__, plain loops, 4.1 / 6.2 / 10.1; 16-byte chunks, two a
-// thread, 3.8 / 3.7 / 7.2; one a thread (this design) 3.2 / 3.6 / 6.9-7.0.
+// thread, 3.8 / 3.7 / 7.2; one a thread (this design) 3.2 / 3.6 / 6.9-7.6.
 // Past an empty kernel (0.95) it is the reduction and its atomics' round
-// trip (2.2 with no ui, button or section) and one load round trip.
+// trip (2.0-2.2 with no ui, button or section) and one load round trip. A
+// clock64 timeline of every block (probe_hostpack.py, 822 x 986; cycles,
+// median / slowest block): the ui loads 1150 / 2790, the button 70 / 620,
+// the sections 190 / 1120, the block's reduction 120 / 180, the slot
+// atomic's return 770 / 1610; 2700 / 4000 in all. Designs that lost to it
+// in turns (probe_hostpack.py, the same card): one loop of steps whose
+// every load (1, 2 or 4 chunks a thread, a button pixel, a section byte)
+// issues before any use, 3.3 / 4.8 / 7.1 (2 chunks 4.0 / 4.0 / 7.1, 4
+// chunks 4.9 / 4.6 / 8.3); thread block clusters gathering their blocks'
+// partials in the first block's shared memory (one cluster barrier)
+// before one add each, clusters of 8 4.0 / 5.8 / 10.3, of 16 3.9 / 5.7 /
+// 10.6; 1024-thread blocks in clusters of 16, 4 chunks a thread, one
+// cluster and no add a frame at 822 x 986, 8.6 / 6.9 / 16.5.
 //
 // A batch of B frames is one launch: blockIdx.y selects the frame, whose
 // planes, button and sections start their frame strides after the previous

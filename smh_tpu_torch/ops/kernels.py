@@ -105,8 +105,10 @@ they compute each frame's plain result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -181,8 +183,12 @@ def _scratch(kernel: str, device: torch.device, stream: int, words: int) -> torc
     stream), kept across calls: the kernel leaves it zeroed at the end of
     every launch, so it is zeroed once, when it is made (or grows). One per
     device and stream, so launches that may run at once never share one;
-    calls on one stream run in order."""
+    calls on one stream run in order. An existing scratch is found with no
+    lock (a dict read is atomic); the lock guards making one."""
     key = (kernel, device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is not None and buf.numel() >= words:
+        return buf
     with _scratch_lock:
         buf = _SCRATCH.get(key)
         if buf is None or buf.numel() < words:
@@ -191,8 +197,25 @@ def _scratch(kernel: str, device: torch.device, stream: int, words: int) -> torc
         return buf
 
 
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device `index`, its cudaStream_t as an
+    int, read with no torch.cuda.Stream built: torch._C.
+    _cuda_getCurrentRawStream is a private PyTorch API (the one Triton's
+    launcher reads)."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return _raw_stream(t.device.index)
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def _on(device: torch.device):
+    """A context that makes `device` the current CUDA device for a launch:
+    none where it already is."""
+    return _CURRENT if torch.cuda.current_device() == device.index else torch.cuda.device(device)
 
 
 def _frame_stride(planes) -> int:
@@ -592,23 +615,22 @@ def mask_bbox_sparse(bits: torch.Tensor, w: int, budget: int) -> torch.Tensor:
 # -- kernel 8: the delta apply ---------------------------------------------------
 
 
-def _delta_tables(buf: torch.Tensor, bucket: int, chunk: int) -> tuple:
-    """(frames, index tables i32 [B, bucket], chunks u8 [B, bucket, chunk])
-    of a delta upload, or ValueError."""
+def _delta_frames(buf: torch.Tensor, bucket: int, chunk: int) -> int:
+    """The frames of a delta upload (from its size), or ValueError."""
     per_frame = bucket * (4 + chunk)
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or bucket <= 0 or chunk <= 0 or buf.numel() == 0 \
-            or buf.numel() % per_frame:
-        raise ValueError(f"delta buffer of {buf.numel()} bytes does not hold frames of {bucket} chunks of {chunk}")
-    bsz = buf.numel() // per_frame
-    return bsz, buf[: 4 * bucket * bsz].view(torch.int32).view(bsz, bucket), \
-        buf[4 * bucket * bsz :].view(bsz, bucket, chunk)
+    n = buf.numel()
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or bucket <= 0 or chunk <= 0 or n == 0 or n % per_frame:
+        raise ValueError(f"delta buffer of {n} bytes does not hold frames of {bucket} chunks of {chunk}")
+    return n // per_frame
 
 
 def delta_apply_plain(resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: int) -> torch.Tensor:
     """Plain PyTorch twin of the delta apply kernel: a copy of the row
     before and an index_copy_ of the frame's chunks, frame by frame (any
     index order)."""
-    bsz, idxs, datas = _delta_tables(buf, bucket, chunk)
+    bsz = _delta_frames(buf, bucket, chunk)
+    idxs = buf[: 4 * bucket * bsz].view(torch.int32).view(bsz, bucket)
+    datas = buf[4 * bucket * bsz :].view(bsz, bucket, chunk)
     rows = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
     prev = resident
     for i in range(bsz):
@@ -633,24 +655,26 @@ def delta_apply(resident: torch.Tensor, buf: torch.Tensor, bucket: int, chunk: i
     its last entry's data; chunk must be a multiple of 16, and resident and
     the upload's chunks 16-byte aligned. The plain twin (CPU tensors) takes
     the indices in any order."""
-    bsz, _, _ = _delta_tables(buf, bucket, chunk)
+    bsz = _delta_frames(buf, bucket, chunk)
     if resident.dtype != torch.uint8 or resident.dim() != 1 or resident.numel() % chunk:
         raise ValueError(f"resident of {resident.dtype} {tuple(resident.shape)} is not u8 chunks of {chunk}")
-    if resident.device != buf.device:
-        raise ValueError(f"resident on {resident.device}, upload on {buf.device}")
-    if resident.device.type == "cpu":
+    device = resident.device
+    if device != buf.device:
+        raise ValueError(f"resident on {device}, upload on {buf.device}")
+    if device.type == "cpu":
         return delta_apply_plain(resident, buf, bucket, chunk)
-    if resident.device.type != "cuda":
-        raise ValueError(f"unsupported device {resident.device}")
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
     if chunk % 16 or bsz > DELTA_MAX_FRAMES or not resident.is_contiguous() or not buf.is_contiguous() \
             or (resident.data_ptr() | (buf.data_ptr() + 4 * bucket * bsz)) % 16:
         raise ValueError(f"the kernel takes chunks of a multiple of 16 bytes at 16-byte aligned addresses and at "
                          f"most {DELTA_MAX_FRAMES} frames: chunk {chunk}, {bsz} frames")
-    out = torch.empty((bsz, resident.numel()), dtype=torch.uint8, device=resident.device)
+    n = resident.numel()
+    out = torch.empty((bsz, n), dtype=torch.uint8, device=device)
     lib = _build.load()
-    with torch.cuda.device(resident.device):
-        code = lib.smh_delta_apply(resident.data_ptr(), resident.numel(), buf.data_ptr(), bucket, chunk, bsz,
-                                   out.data_ptr(), _stream_ptr(resident))
+    with _on(device):
+        code = lib.smh_delta_apply(resident.data_ptr(), n, buf.data_ptr(), bucket, chunk, bsz, out.data_ptr(),
+                                   _raw_stream(device.index))
     _build.check(code, "smh_delta_apply")
     LAUNCHES["delta_apply"] += 1
     return out
@@ -707,62 +731,147 @@ def hostpack_tail(ui_planes, btn, sections=()) -> torch.Tensor:
     hostpack (hostpack_layout) when the sections are its others. A batch
     ([B, ...] inputs) is one launch, its hostpacks the rows of [B, bytes].
     No memset: the kernel writes every byte."""
-    sections = [t for t in sections if t.shape[-1] > 0]
-    lead = _tail_inputs(ui_planes, btn, sections)
     first = ui_planes[0]
-    if first.device.type == "cpu":
+    device = first.device
+    if device.type == "cpu":
+        sections = [t for t in sections if t.shape[-1] > 0]
+        _tail_inputs(ui_planes, btn, sections)
         return hostpack_tail_plain(ui_planes, btn, sections)
-    if first.device.type != "cuda":
-        raise ValueError(f"unsupported device {first.device}")
-    args, out, _alive = hostpack_args(ui_planes, btn, sections, lead)  # _alive: the table the args point at
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    args, out, _alive = hostpack_args(ui_planes, btn, sections)  # _alive: the table the args point at
     lib = _build.load()
-    with torch.cuda.device(first.device):
+    with _on(device):
         code = lib.smh_hostpack(*args)
     _build.check(code, "smh_hostpack")
     LAUNCHES["hostpack"] += 1
     return out
 
 
-def hostpack_args(ui_planes, btn, sections, lead: tuple) -> tuple:
-    """(the arguments of smh_hostpack, the fresh output, what must live
-    until the call returns) for checked CUDA inputs of leading shape
-    `lead` (hostpack_tail's; the kernel probe calls other builds with
-    them)."""
-    first = ui_planes[0]
-    if len(sections) > HOSTPACK_MAX_SECTIONS:
-        raise ValueError(f"{len(sections)} sections: the kernel takes at most {HOSTPACK_MAX_SECTIONS}")
+class HostpackPlan(NamedTuple):
+    """What kernel 9's call takes from its inputs' shapes and strides alone,
+    built once per (planes, button, sections) shapes and strides and reused
+    (hostpack_plan): the row's size and its offsets (red_off, ui_off, each
+    section's), the ui planes' geometry (step, pitch and frame stride in
+    bytes, h, w), the button's (pixels, frame stride), and the sections'
+    table of smh_hostpack (source address, frame stride, offset, bytes)
+    with its addresses left 0, `keep` naming the sections (of those given)
+    that have bytes."""
+
+    lead: tuple
+    bsz: int
+    row: int
+    red_off: int
+    ui_off: int
+    n_ui: int
+    step: int
+    pitch: int
+    stride: int
+    h: int
+    w: int
+    btn_px: int
+    btn_stride: int
+    keep: tuple
+    offsets: tuple
+    table: tuple
+
+
+def hostpack_plan(ui_shape, ui_strides, n_ui: int, btn_shape=None, btn_strides=None, sections=()) -> HostpackPlan:
+    """Kernel 9's plan (HostpackPlan) for ui planes of `ui_shape` ([h, w] or
+    [B, h, w]) and strides `ui_strides` (elements; shared by the n_ui
+    planes), a button of `btn_shape` / `btn_strides` ([..., bh, bw, 3];
+    None: none) and the sections' (shape, strides) in order; a pure
+    function of them, or ValueError where the kernel does not take them."""
+    lead = tuple(ui_shape[:-2])
     bsz = lead[0] if lead else 1
-    h, w = first.shape[-2:]
-    steps = {(p.stride(-1), p.stride(-2), p.stride(0) if lead and bsz > 1 else 0) for p in ui_planes}
-    if len(steps) != 1:
-        raise ValueError(f"the ui planes differ in strides: {steps}")
-    step, pitch, stride = steps.pop()
-    if first.numel() == 0 or h > 0xFFFF or w > 0xFFFF or step < 1 or pitch < (w - 1) * step + 1:
-        raise ValueError(f"ui planes {tuple(first.shape)} of strides {first.stride()}: the kernel takes planes "
+    h, w = ui_shape[-2:]
+    step, pitch = ui_strides[-1], ui_strides[-2]
+    stride = ui_strides[0] if lead and bsz > 1 else 0
+    if h * w == 0 or h > 0xFFFF or w > 0xFFFF or step < 1 or pitch < (w - 1) * step + 1:
+        raise ValueError(f"ui planes {tuple(ui_shape)} of strides {tuple(ui_strides)}: the kernel takes planes "
                          f"of at most 65535 rows and columns")
-    table = []
-    off = 12 if btn is not None else 8
-    for t in sections:
-        if t.stride(-1) != 1:
-            raise ValueError(f"a section's bytes must be contiguous: strides {t.stride()}")
-        table += [t.data_ptr(), t.stride(0) if lead and bsz > 1 else 0, off, t.shape[-1]]
-        off += t.shape[-1]
-    bh = bw = 0
-    if btn is not None:
-        bh, bw = btn.shape[-3:-1]
-        if btn.stride(-1) != 1 or btn.stride(-2) != 3 or btn.stride(-3) != 3 * bw or bh * bw == 0:
-            raise ValueError(f"the button's pixels must be contiguous BGR: strides {btn.stride()}")
-    out = torch.empty((*lead, off), dtype=torch.uint8, device=first.device)
-    stream = _stream_ptr(first)
-    scratch = _scratch("hostpack", first.device, stream, HOSTPACK_SCRATCH * bsz)
-    rows = (ctypes.c_int64 * max(len(table), 1))(*table)
-    planes = [p.data_ptr() for p in ui_planes] * (3 // len(ui_planes))
-    r, g, b = (int(c) for c in C.CLOSE_DEPLOYMENT_BUTTON_COLOR)
+    keep = tuple(i for i, (shape, _) in enumerate(sections) if shape[-1] > 0)
+    if len(keep) > HOSTPACK_MAX_SECTIONS:
+        raise ValueError(f"{len(keep)} sections: the kernel takes at most {HOSTPACK_MAX_SECTIONS}")
+    off = 12 if btn_shape is not None else 8
+    table, offsets = [], []
+    for i in keep:
+        shape, strides = sections[i]
+        if strides[-1] != 1:
+            raise ValueError(f"a section's bytes must be contiguous: strides {tuple(strides)}")
+        table += [0, strides[0] if lead and bsz > 1 else 0, off, shape[-1]]
+        offsets.append(off)
+        off += shape[-1]
+    btn_px = btn_stride = 0
+    if btn_shape is not None:
+        bh, bw = btn_shape[-3:-1]
+        if btn_strides[-1] != 1 or btn_strides[-2] != 3 or btn_strides[-3] != 3 * bw or bh * bw == 0:
+            raise ValueError(f"the button's pixels must be contiguous BGR: strides {tuple(btn_strides)}")
+        btn_px, btn_stride = bh * bw, btn_strides[0] if lead and bsz > 1 else 0
+    return HostpackPlan(lead=lead, bsz=bsz, row=off, red_off=0 if btn_shape is not None else -1,
+                        ui_off=4 if btn_shape is not None else 0, n_ui=n_ui, step=step, pitch=pitch, stride=stride,
+                        h=h, w=w, btn_px=btn_px, btn_stride=btn_stride, keep=keep, offsets=tuple(offsets),
+                        table=tuple(table))
+
+
+_PLANS: dict = {}  # the inputs' (dtype, shape, strides, device) -> HostpackPlan
+_tls = threading.local()  # each thread's sections tables: id of a plan in _PLANS -> a ctypes array
+
+
+def hostpack_plan_for(ui_planes, btn, sections) -> HostpackPlan:
+    """The plan of these inputs: the one built for inputs of the same
+    dtypes, shapes, strides and devices, else a new one, after every check
+    of _tail_inputs and hostpack_plan (a plan found was built from inputs
+    that passed them)."""
+    key = (len(ui_planes), *[None if t is None else (t.dtype, t.shape, t.stride(), t.device)
+                             for t in (*ui_planes, btn, *sections)])
+    plan = _PLANS.get(key)
+    if plan is None:
+        _tail_inputs(ui_planes, btn, [t for t in sections if t.shape[-1] > 0])
+        first = ui_planes[0]
+        batch = first.dim() == 3 and first.shape[0] > 1
+        steps = {(p.stride(-1), p.stride(-2), p.stride(0) if batch else 0) for p in ui_planes}
+        if len(steps) != 1:
+            raise ValueError(f"the ui planes differ in strides: {steps}")
+        plan = _PLANS[key] = hostpack_plan(
+            first.shape, first.stride(), len(ui_planes), None if btn is None else btn.shape,
+            None if btn is None else btn.stride(), tuple((t.shape, t.stride()) for t in sections))
+    return plan
+
+
+def hostpack_args(ui_planes, btn, sections, own_table: bool = False) -> tuple:
+    """(the arguments of smh_hostpack, the fresh output, what must live
+    until the call returns) for CUDA inputs (hostpack_tail's; the kernel
+    probe calls other builds with them, with a table of its own:
+    own_table). Only the addresses are filled in per call: the rest is the
+    plan's."""
+    plan = hostpack_plan_for(ui_planes, btn, sections)
+    first = ui_planes[0]
+    device = first.device
+    n = len(plan.keep)
+    if own_table:
+        rows = (ctypes.c_int64 * max(4 * n, 1))(*plan.table)
+    else:
+        tables = getattr(_tls, "tables", None)
+        if tables is None:
+            tables = _tls.tables = {}
+        rows = tables.get(id(plan))  # the plans in _PLANS live as long as the process
+        if rows is None:
+            rows = tables[id(plan)] = (ctypes.c_int64 * max(4 * n, 1))(*plan.table)
+    if n:
+        rows[0 : 4 * n : 4] = [sections[i].data_ptr() for i in plan.keep]
+    out = torch.empty((*plan.lead, plan.row), dtype=torch.uint8, device=device)
+    stream = _raw_stream(device.index)
+    scratch = _scratch("hostpack", device, stream, HOSTPACK_SCRATCH * plan.bsz)
+    planes = [p.data_ptr() for p in ui_planes] * (3 // plan.n_ui)
     args = (
-        *planes, len(ui_planes), step, pitch, stride, h, w,
-        None if btn is None else btn.data_ptr(), btn.stride(0) if btn is not None and lead and bsz > 1 else 0,
-        bh * bw, r, g, b, int(C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE), ctypes.addressof(rows), len(sections),
-        out.data_ptr(), off, 0 if btn is not None else -1, 4 if btn is not None else 0, bsz, scratch.data_ptr(),
+        *planes, plan.n_ui, plan.step, plan.pitch, plan.stride, plan.h, plan.w,
+        None if btn is None else btn.data_ptr(), plan.btn_stride, plan.btn_px, *_BUTTON_RGB_TOL,
+        ctypes.addressof(rows), n, out.data_ptr(), plan.row, plan.red_off, plan.ui_off, plan.bsz, scratch.data_ptr(),
         stream,
     )
     return args, out, (rows, scratch)
+
+
+# The button's colour (r, g, b) and tolerance, as smh_hostpack takes them.
+_BUTTON_RGB_TOL = (*(int(c) for c in C.CLOSE_DEPLOYMENT_BUTTON_COLOR), int(C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE))

@@ -3,13 +3,16 @@ counts cost; with --against, beside another tree's kernel, in turns.
 
 Builds csrc/hostpack.cu as it is, with its blocks a launch changed (2 or
 8 an SM in place of 4) or the 16-byte chunks a thread loads at once (2 or
-4 in place of 1), and with parts of it switched off (the sections' copy;
-the button; the ui plane's loads; the slots' atomics; everything: an empty
-kernel of the same grid), and with --against DIR, DIR/smh_tpu_torch/csrc/
-hostpack.cu, each into its own library under smh_tpu_torch/build/probe-*,
-and prints each build's device time per call (chip_smoke.device_profile:
-every CUDA row of the call) in turns (against, as built, as built, against;
-then the variants), on the main path's table (the tail's inputs recorded
+4 in place of 1), with a timeline (thread 0 of every block stamps clock64()
+at the start, after the ui loop, the button's, the sections', the block's
+barrier and its slot atomic; printed as the median and the slowest block
+of each phase, in cycles), and with parts of it switched off (the
+sections' copy; the button; the ui plane's loads; the slots' atomics;
+everything: an empty kernel of the same grid), and with --against DIR,
+DIR/smh_tpu_torch/csrc/hostpack.cu, each into its own library under
+smh_tpu_torch/build/probe-*, and prints each build's device time per call
+(chip_smoke.device_profile: every CUDA row of the call) in turns (against,
+as built, as built, against; then the variants), on the main path's table (the tail's inputs recorded
 from the fused pass of chip_smoke.frame_for's frame, smhocr's device read
 and the sparse words) at 1080p and 4K, and of a batch of 8 at 1080p. The
 builds that keep the outputs are held to the plain twin first, over two
@@ -43,9 +46,21 @@ _UI = (("    for (int j0 = gt; j0 < first[NP];", "    for (int j0 = gt; j0 < 0 *
 _ATOMICS = ("  __syncthreads();\n  if (tid < SLOTS) {", "  __syncthreads();\n  if (ui.h > 0) return;  // probe\n"
             "  if (tid < SLOTS) {")
 _EMPTY = ("  const int64_t f = blockIdx.y;\n", "  if (ui.h > 0) return;  // probe\n  const int64_t f = blockIdx.y;\n")
+# A timeline (_probe.timeline_patches): thread 0 of every block stamps the
+# start, the end of the ui loop, of the button's, of the sections', the
+# block's barrier and its slot atomic's return.
+TIMELINE = "timeline"
+TIMELINE_PHASES = ("ui", "button", "sections", "reduce and barrier", "slot atomic")
+_STAMPS = (("  const int gt = blockIdx.x * THREADS + tid;  // this thread among the frame's\n", 0, "0"),
+           ("  // The red gate's count.\n", 1, "sum ^ wsum"),
+           ("  // The sections' bytes, one index space", 2, "red"),
+           ("  sum = __reduce_add_sync(FULL, sum);\n", 3, "0"),
+           ("  if (tid < SLOTS) {  // slot tid", 4, "0"),
+           ("    if ((old >> COUNT_SHIFT) == gridDim.x - 1) {", 5, "(unsigned)old"))
 # variant: (patches, keeps the outputs)
 VARIANTS = {
     "as built": ((), True),
+    TIMELINE: (tuple(_probe.timeline_patches("#include <stdint.h>\n", _STAMPS)), True),
     "2 blocks an SM": (((_BLOCKS, _BLOCKS.replace("4;", "2;")),), True),
     "8 blocks an SM": (((_BLOCKS, _BLOCKS.replace("4;", "8;")),), True),
     "2 chunks at once": (((_CHUNKS, _CHUNKS.replace("1;", "2;")),), True),
@@ -73,8 +88,7 @@ def launcher(lib, tail: tuple):
     """A call of lib's smh_hostpack on a recorded tail (ui planes, button,
     sections), as kernels.hostpack_tail makes it, and its output."""
     ui, btn, sections = tail
-    lead = tuple(ui[0].shape[:-2])
-    args, out, keep = K.hostpack_args(ui, btn, sections, lead)
+    args, out, keep = K.hostpack_args(ui, btn, sections, own_table=True)
 
     def call():
         _build.check(lib.smh_hostpack(*args), "smh_hostpack")
@@ -145,7 +159,11 @@ def main(argv=None) -> int:
             times[name].append(cs.device_profile(calls[name], n=50)["us"])
         print(f"{label}: device us per call: " + "; ".join(
             f"{n} " + " / ".join(f"{t:.2f}" for t in ts) for n, ts in times.items()), flush=True)
-        summary[label] = times
+        stamps = _probe.timeline_of(libs[TIMELINE], calls[TIMELINE], len(_STAMPS), dev)
+        line = _probe.timeline_summary(stamps, TIMELINE_PHASES)
+        print(f"{label}: timeline of {stamps.shape[0]} blocks, cycles [median, max] over the blocks: "
+              + json.dumps(line), flush=True)
+        summary[label] = {"us": times, "timeline": line}
     print("probe_hostpack: " + json.dumps({"card": card, "us": summary}), flush=True)
     return 0
 

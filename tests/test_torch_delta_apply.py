@@ -8,12 +8,15 @@ rolled and two-pass diffs, native and numpy) emits each frame's indices
 non-decreasing. The kernel itself runs only on the card (chip_smoke.py's
 delta_apply phase holds it to this twin). All comparisons are exact."""
 
+import pathlib
+
 import jax
 import numpy as np
 import pytest
 import torch
 
 from smh_tpu.ops import pipeline as jpp
+from smh_tpu_torch import _probe, probe_delta_apply
 from smh_tpu_torch import consts as C
 from smh_tpu_torch import testing
 from smh_tpu_torch.ops import kernels as K
@@ -23,6 +26,8 @@ from smh_tpu_torch.vision import cuda_backend as cb
 from test_torch_reference import _reference_native, port_native  # noqa: F401  (module-scoped fixtures)
 
 torch.set_num_threads(1)
+
+CSRC = pathlib.Path(K.__file__).resolve().parent.parent / "csrc"
 
 FW, FH = 641, 361  # map 275 x 329
 G = C.map_geometry(FW, FH)
@@ -210,3 +215,30 @@ def test_batch_pipeline_index_tables_are_non_decreasing(route):
         _assert_non_decreasing(buf, bucket, 4, route)
     finally:
         bp.close()
+
+
+@pytest.mark.parametrize("variant", sorted(probe_delta_apply.VARIANTS))
+def test_probe_patches_apply(variant):
+    """Each ablation and chain variant of probe_delta_apply applies to the
+    kernel source as it is, each of its texts exactly once, and changes it
+    (except the unpatched build); the source names what it replaces."""
+    text = (CSRC / "delta_apply.cu").read_text()
+    patches = probe_delta_apply.VARIANTS[variant][0]
+    src = text
+    for old, new in patches:
+        assert src.count(old) == 1, old
+        src = src.replace(old, new)
+    assert src == _probe.patched(CSRC, ("delta_apply.cu",), {"delta_apply.cu": list(patches)})["delta_apply.cu"]
+    assert (src == text) == (not patches)
+    assert "smh_delta_apply" in src and "_analyze_delta_flat" in src and "_analyze_batch_delta" in src
+
+
+def test_probe_variants_and_chain_steps():
+    """The probe's chain floor counts the launch, the load round trips and
+    the barriers; its builds that keep the outputs (held to the twin on the
+    card) are the ones that are neither an ablation nor a chain variant,
+    and its timeline stamps one point more than it has phases."""
+    assert set(probe_delta_apply.CHAIN_STEPS) == {"launch", "dependent load", "block barrier"}
+    for name, (_patches, keeps) in probe_delta_apply.VARIANTS.items():
+        assert keeps == (not name.startswith(("ablation", "chain"))), name
+    assert len(probe_delta_apply._STAMPS) == len(probe_delta_apply.TIMELINE_PHASES) + 1

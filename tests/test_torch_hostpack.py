@@ -175,3 +175,109 @@ def test_probe_patches_apply(variant):
     assert src == _probe.patched(CSRC, ("hostpack.cu",), {"hostpack.cu": list(patches)})["hostpack.cu"]
     assert (src == text) == (not patches)
     assert "smh_hostpack" in src and "_weighted_check" in src and "_red_gate_roi" in src
+
+
+# -- the plan: what the wrapper builds once per shapes and strides ---------------------
+
+
+def _recorded_tail(route: str, grayscale: bool, monkeypatch, bsz: int | None = None) -> tuple:
+    """The inputs of the pass's one kernel 9 call on ROUTES[route] (a batch
+    of bsz frames where given), and the layout its hostpack follows."""
+    inline, sparse, crop, band = ROUTES[route]
+    f = testing.make_frame(FW, FH, marker_lines=[((20, 30), (150, 90))], scale_texts=[("300m", (30, 60))],
+                           scale_bars=[(30, 86, 60, 1)])
+    mr = f[G.map_y : G.map_y + G.map_h, G.map_x : G.map_x + G.map_w]
+    br = f[G.btn_y : G.btn_y + G.btn_h, G.btn_x : G.btn_x + G.btn_w]
+    packed = torch.from_numpy(cb._pack_rois_bgr(mr, br, cb._DELTA_CHUNK))
+    kw = dict(map_h=G.map_h, map_w=G.map_w, btn_h=G.btn_h, btn_w=G.btn_w, grayscale=grayscale,
+              scales_inline=inline, sparse_budget=sparse, crop_h=crop and crop[0], crop_w=crop and crop[1],
+              templates=sd.templates_to_device(sd.device_templates(), "cpu"))
+    calls = []
+    tail = K.hostpack_tail
+    monkeypatch.setattr(K, "hostpack_tail", lambda *a: calls.append(a) or tail(*a))
+    if bsz is None:
+        tpp.analyze_packed_flat(packed, scales_band=band, **kw)
+    else:
+        tpp.analyze_batch_packed_flat(packed.repeat(bsz, 1), **kw)
+    assert len(calls) == 1
+    layout = tpp.hostpack_layout(G.map_h, G.map_w, scales_inline=inline, sparse_budget=sparse,
+                                 crop_h=kw["crop_h"], crop_w=kw["crop_w"], scales_band=band)
+    return calls[0], layout
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("grayscale", [True, False])
+def test_plan_offsets_match_hostpack_layout(route, grayscale, monkeypatch):
+    """The plan of the pass's tail on every route puts the red ratio and the
+    ui checksum at hostpack_layout's offsets, starts each section on one of
+    the layout's section boundaries (a part may hold several sections, as
+    the sparse words' nz, idx and dat), and ends the row at its total; its
+    table holds each section's offset and bytes with no address."""
+    (ui, btn, sections), layout = _recorded_tail(route, grayscale, monkeypatch)
+    plan = K.hostpack_plan_for(ui, btn, sections)
+    assert (plan.red_off, plan.ui_off) == (layout["red_ratio"][0], layout["ui_check"][0])
+    assert plan.row == layout["__total__"]
+    starts = {v[0] for name, v in layout.items() if name != "__total__"}
+    assert set(plan.offsets) <= starts and plan.offsets[0] == layout["lsd_meta"][0]
+    assert plan.n_ui == len(ui) and (plan.h, plan.w) == tuple(ui[0].shape[-2:])
+    assert plan.btn_px == G.btn_h * G.btn_w and plan.bsz == 1 and plan.lead == ()
+    for k, i in enumerate(plan.keep):
+        assert plan.table[4 * k : 4 * k + 4] == (0, 0, plan.offsets[k], sections[i].shape[-1])
+
+
+@pytest.mark.parametrize("bsz", [2, 3])
+def test_plan_of_a_batch(bsz, monkeypatch):
+    """A batch's plan: the sections' and the button's frame strides, the ui
+    planes' frame stride, the row the per-frame layout's."""
+    (ui, btn, sections), layout = _recorded_tail("device + sparse", True, monkeypatch, bsz=bsz)
+    plan = K.hostpack_plan_for(ui, btn, sections)
+    assert plan.bsz == bsz and plan.lead == (bsz,) and plan.row == layout["__total__"]
+    assert plan.stride == ui[0].stride(0) and plan.btn_stride == btn.stride(0)
+    for k, i in enumerate(plan.keep):
+        assert plan.table[4 * k + 1] == sections[i].stride(0)
+
+
+def test_plan_is_reused_and_rebuilt_on_a_shape_change():
+    """The same shapes and strides find the same plan; another section size,
+    plane shape, plane stride or button shape builds another, whose offsets
+    follow the new sizes (none is stale), and hostpack_plan is a pure
+    function of the shapes and strides."""
+    rng = np.random.default_rng(9)
+
+    def inputs(h, w, sizes, bh=5, pad=0):
+        plane = torch.from_numpy(rng.integers(0, 256, (h, w + pad), dtype=np.uint8))[:, :w]
+        btn = torch.zeros((bh, 7, 3), dtype=torch.uint8)
+        return (plane,), btn, [torch.zeros(n, dtype=torch.uint8) for n in sizes]
+
+    a = K.hostpack_plan_for(*inputs(37, 53, (24, 16, 5)))
+    assert K.hostpack_plan_for(*inputs(37, 53, (24, 16, 5))) is a
+    assert a.offsets == (12, 36, 52) and a.row == 57
+    b = K.hostpack_plan_for(*inputs(37, 53, (24, 17, 5)))
+    assert b is not a and b.offsets == (12, 36, 53) and b.row == 58
+    c = K.hostpack_plan_for(*inputs(38, 53, (24, 16, 5)))
+    assert c is not a and (c.h, c.pitch) == (38, 53)
+    d = K.hostpack_plan_for(*inputs(37, 53, (24, 16, 5), pad=3))
+    assert d is not a and d.pitch == 56
+    e = K.hostpack_plan_for(*inputs(37, 53, (24, 16, 5), bh=6))
+    assert e is not a and e.btn_px == 42
+    f = K.hostpack_plan_for(inputs(37, 53, ())[0], None, [torch.zeros(n, dtype=torch.uint8) for n in (0, 4)])
+    assert (f.red_off, f.ui_off, f.keep, f.offsets, f.row) == (-1, 0, (1,), (8,), 12)
+    args = ((37, 53), (53, 1), 1, (5, 7, 3), (21, 3, 1), (((24,), (1,)), ((16,), (1,))))
+    assert K.hostpack_plan(*args) == K.hostpack_plan(*args) == a._replace(offsets=(12, 36), row=52, table=a.table[:8],
+                                                                         keep=(0, 1))
+
+
+def test_plan_rejects_what_the_kernel_does_not_take():
+    luma = torch.zeros((4, 6), dtype=torch.uint8)
+    btn = torch.zeros((2, 3, 3), dtype=torch.uint8)
+    one = torch.zeros((1,), dtype=torch.uint8)
+    for args in (
+        ((luma,), btn, [torch.zeros((8,), dtype=torch.uint8)[::2]]),  # a section's bytes not contiguous
+        ((luma,), btn, [one] * (K.HOSTPACK_MAX_SECTIONS + 1)),  # too many sections
+        ((luma,), btn.transpose(0, 1), []),  # the button's pixels not BGR rows
+        ((luma, luma.t().contiguous().t(), luma), btn, []),  # planes of other strides
+        ((luma.to(torch.int16),), btn, []),  # not u8 (as _tail_inputs)
+        ((torch.zeros((0, 6), dtype=torch.uint8),), btn, []),  # empty
+    ):
+        with pytest.raises(ValueError):
+            K.hostpack_plan_for(*args)
