@@ -94,6 +94,26 @@ each printing a line, each failing loudly:
                and 8; one launch per call, no memset; timed on the main
                path's table at 1080p, 4K and B = 8 beside its bound, its
                plain twin and torch.cat of the parts;
+     window_crop — kernel 10, the window crop, against its plain twin
+               (meta and window bits, every byte) on
+               testing.window_crop_cases (an empty mask, the bbox at each
+               border, the origin's column at every value mod 8, ragged
+               crop widths, one full dimension each way), random masks at
+               both map shapes at every pair of the window ladder's rungs,
+               the verify frame's mask at 1080p and 4K, and B = 1, 3 and 8
+               masks of one buffer, an origin per frame (== the per-frame
+               kernel); one launch per call, no memset; timed at the
+               half-size windows and at B = 8 beside its bound;
+     ocr_band — kernel 11, the OCR row band and the keep bits, against
+               its plain twin (every section) banded (binary and gray) and
+               unbanded on testing.ocr_band_cases (textless, text on the
+               first or last row, band == h, a single pixel, text at the
+               cluster's strip seams, ragged widths), kernel 6's outputs at
+               both quadrant shapes at every band rung, the verify frame's
+               quadrant at 1080p and 4K, and B = 1, 3 and 8 quadrants of one
+               buffer (== the per-frame kernel); one launch per call, no
+               memset; timed on the verify frame's gray band and on B = 8
+               unbanded keep bits beside its bound;
      repeated — kernels 6, 7 and 9, 100 calls each in turns over shapes,
                batch sizes and budgets (every tenth on a second stream),
                each == its plain twin: the scratch each keeps between
@@ -113,8 +133,8 @@ each printing a line, each failing loudly:
                smhocr without the device read; hostpacks equal the same
                backend's CPU path, and the OCR and scales images handed to
                the engine equal the numpy oracle's (the scales image in the
-               band's rows, background outside); prints D2H bytes per
-               frame;
+               band's rows, background outside), kernels 10 and 11
+               launched; prints D2H bytes per frame;
      debug   — every debug view with the debug re-pass equals the CPU
                path's;
      engine  — lsd_engine="cuda" (the device ray march) gives markers
@@ -126,6 +146,13 @@ each printing a line, each failing loudly:
                CUDA launches (kernels and memset/copy rows) and device
                time per sync frame (profiler), one launch of each kernel
                of the pass and of the delta apply, at most 10 kernels;
+     routes  — with SMH_SPARSE=0, CUDA rows per sync frame (profiler) of
+               the window + gray band and window + binary band routes:
+               kernels 1-3 and 6-11 once each, 9 kernels, at most 3
+               memset/copy rows; per delta batch of BatchPipeline(batch=8)
+               with its window and the binary keep bits, over a drag that
+               stays in the window: the same 9 kernels once each, at most
+               3 memset/copy rows;
   7. loop    — CaptureThread -> VisionLoop delivers an update;
   8. live    — the pipelined VisionLoop (delta upload, consume views, async
                fetch) over a cycling marker-drag sequence at 1080p and 4K,
@@ -135,8 +162,9 @@ each printing a line, each failing loudly:
                and the submit half runs under sync-debug mode "error";
                prints fps, H2D bytes per delta frame and frame -> update
                p50/p90; then, threaded and uncapped, the drag with a panning
-               scale legend, SMH_SPARSE=0 and the gray band (window rungs
-               and band gathers in the submit half, also under "error");
+               scale legend, SMH_SPARSE=0 and the gray band (the window crop
+               and the band, kernels 10 and 11, in the submit half, also
+               under "error");
   9. app     — smh_tpu_torch.app.App on the CLI's synthetic source,
                pipelined with async scales, delivers an update and stops;
  10. batch kernels — kernels 1-3, 6 and 7 over a whole batch in one
@@ -380,6 +408,7 @@ def device_profile(fn, n: int = 20, names=(), tries: int = 4) -> dict:
         "named": {name: sum(e.count for e in kernels if f"{name}_kernel" in e.key) / n for name in names},
         "named_us": {name: sum(e.self_device_time_total for e in kernels if f"{name}_kernel" in e.key) / n
                      for name in names},
+        "rows": {e.key: e.count / n for e in rows if e not in kernels},
     }
 
 
@@ -1575,6 +1604,268 @@ def phase_hostpack(dev: torch.device) -> dict:
     }
 
 
+def phase_window_crop(dev: torch.device) -> dict:
+    """Kernel 10 (csrc/window_crop.cu), the window crop, byte-equal to its
+    plain twin on the card (meta and window bits): on
+    testing.window_crop_cases (an empty mask, the bbox at each border, the
+    origin's column at every value mod 8, ragged crop widths, the row's last
+    byte under the window, one full dimension each way, the whole plane,
+    1-row and 1-column planes, random planes), random masks at both map
+    shapes at every pair of the window ladder's rungs, the origin's column
+    at every value mod 8 at both map shapes, the verify frame's mask at 1080p
+    and 4K, and B = 1, 3 and 8 masks cut from the rows of one buffer, each
+    frame its own origin (== the per-frame kernel); kernel 7's bbox lanes on
+    the card as its input; one launch per call, no memset (profiler). Timed
+    at the 1080p and 4K half-size windows and at B = 8 beside its bound."""
+    from smh_tpu_torch import consts as C
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.ops import pipeline as opp
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    rng = np.random.default_rng(29)
+    margin = int(opp.LSD_CROP_MARGIN)
+    calls = 0
+
+    def check(bits: torch.Tensor, w: int, crop_h: int, crop_w: int, label: str, words=None) -> tuple:
+        nonlocal calls
+        words = K.mask_bbox_sparse(bits, w, 0) if words is None else words
+        before = K.LAUNCHES["window_crop"]
+        got = K.window_crop(bits, words, w, crop_h, crop_w, margin)
+        require(K.LAUNCHES["window_crop"] == before + 1, f"window_crop: not one launch for {label}")
+        want = K.window_crop_plain(bits, words, w, crop_h, crop_w, margin)
+        for name, g_, w_ in zip(("meta", "window"), got, want):
+            require(g_.shape == w_.shape and g_.dtype == w_.dtype, f"window_crop {name} shape/dtype ({label})")
+            if not torch.equal(g_, w_):
+                at = torch.nonzero(g_ != w_)[:8].tolist()
+                raise RuntimeError(f"check failed: window_crop {name} kernel != plain ({label}) at {at}")
+        calls += 1
+        return got
+
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = testing.window_crop_cases(margin)
+    for name, (bits, w, crop_h, crop_w) in cases.items():
+        check(on_card(bits), w, crop_h, crop_w, name)
+    print(f"window_crop: kernel == plain on the edge cases {sorted(cases)}", flush=True)
+    mods = {}
+    for mh, mw in ((822, 986), (1644, 1972)):
+        lh, lw = cb._dim_ladder(mh), cb._dim_ladder(mw)
+        for density in (0.0002, 0.01):
+            m = np.zeros((mh, mw), bool)
+            y, x = rng.integers(0, mh // 2), rng.integers(0, mw // 2)
+            m[y : y + mh // 3, x : x + mw // 3] = rng.random((mh // 3, mw // 3)) < density
+            bits = on_card(np.packbits(m, axis=1))
+            for ch in lh:
+                for cw in lw:
+                    check(bits, mw, ch, cw, f"random {mh}x{mw} window {ch}x{cw}")
+        for k in range(8):
+            m = np.zeros((mh, mw), bool)
+            m[mh // 3, margin + 200 + k] = m[mh // 3 + 40, margin + 260 + k] = True
+            meta, _ = check(on_card(np.packbits(m, axis=1)), mw, mh // 2, mw // 2, f"{mh}x{mw} cx0 {200 + k}")
+            mods.setdefault(f"{mh}x{mw}", set()).add(int(meta[20:24].cpu().view(torch.int32)) % 8)
+    require(all(v == set(range(8)) for v in mods.values()), f"window_crop: origin columns mod 8 {mods}")
+    print("window_crop: kernel == plain on random masks at 822x986 and 1644x1972 at every pair of the window "
+          "ladder's rungs, and with the origin's column at every value mod 8", flush=True)
+    verify = {}
+    for w, h in LIVE_SIZES:
+        gm = C.map_geometry(w, h)
+        planes = torch.from_numpy(np.ascontiguousarray(np.moveaxis(
+            frame_for(w, h)[gm.map_y : gm.map_y + gm.map_h, gm.map_x : gm.map_x + gm.map_w, :3], -1, 0))).to(dev)
+        bits = K.fused_mask_bits(planes[2], planes[1], planes[0])
+        words = K.mask_bbox_sparse(bits, gm.map_w, 0)
+        verify[h] = (bits, words, gm.map_w, gm.map_h // 2, gm.map_w // 2)
+        meta, _ = check(bits, gm.map_w, gm.map_h // 2, gm.map_w // 2, f"verify frame {w}x{h}", words)
+        require(int(meta[:4].cpu().view(torch.int32)) < gm.map_h, f"no marker in the verify frame's mask at {w}x{h}")
+
+    h, w = 822, 986
+    bpr = (w + 7) // 8
+    batched = {}
+    for bsz in BATCH_SIZES:
+        rows = torch.zeros((bsz, h * bpr + 5), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            m = np.zeros((h, w), bool)
+            if i != 1:  # frame 1 empty: its origin the clamped (H - crop_h, W - crop_w)
+                y, x = 30 + 37 * i, 17 + 53 * i
+                m[y : y + 200, x : x + 300] = rng.random((200, 300)) < 0.01
+            rows[i, : h * bpr] = on_card(np.packbits(m, axis=1)).reshape(-1)
+        bits = rows[:, : h * bpr].view(bsz, h, bpr)
+        words = K.mask_bbox_sparse(bits, w, 0)
+        meta, crop = check(bits, w, h // 2, w // 2, f"B={bsz} strided", words)
+        for i in range(bsz):
+            one = K.window_crop(bits[i], words[i], w, h // 2, w // 2, margin)
+            require(torch.equal(meta[i], one[0]) and torch.equal(crop[i], one[1]), f"window_crop B={bsz} frame {i}")
+        origins = {tuple(meta[i, 16:24].cpu().view(torch.int32).tolist()) for i in range(bsz)}
+        require(len(origins) == bsz, f"window_crop B={bsz}: origins {origins} not one per frame")
+        prof = device_profile(lambda: K.window_crop(bits, words, w, h // 2, w // 2, margin), names=("window_crop",))
+        require(prof["launches"] == 1.0 and prof["named"]["window_crop"] == 1.0,
+                f"window_crop B={bsz}: {prof['launches']} CUDA rows per call (kernels and memsets)")
+        batched[bsz] = (bits, words, prof["named_us"]["window_crop"])
+    print(f"window_crop: the verify frame's mask at 1080p and 4K, and B = {BATCH_SIZES} masks of {h}x{w} from one "
+          f"buffer (frame stride {h * bpr + 5}, an origin per frame) == plain and == the per-frame kernel; one CUDA "
+          f"launch per call, no memset (profiler); device us per call "
+          f"{({b: round(v[2], 2) for b, v in batched.items()})}", flush=True)
+
+    def bound_of(bsz: int, crop_h: int, crop_w: int) -> dict:
+        # the bbox and the window's source bytes in, the meta and the window out
+        n = crop_h * ((crop_w + 7) // 8)
+        return bound(bsz * (16 + n + K.WINDOW_META + n), bsz * 6 * n)
+
+    times = {}
+    for hh, (bits, words, mw, ch, cw) in verify.items():
+        prof = device_profile(lambda: K.window_crop(bits, words, mw, ch, cw, margin), names=("window_crop",))
+        times[hh] = {
+            "ms": cuda_ms(lambda: K.window_crop(bits, words, mw, ch, cw, margin)),
+            "plain_ms": cuda_ms(lambda: K.window_crop_plain(bits, words, mw, ch, cw, margin), n=10),
+            "device_us": prof["named_us"]["window_crop"], **bound_of(1, ch, cw),
+        }
+        print(f"window_crop: the {ch}x{cw} window of the verify frame's {bits.shape[0]}x{mw} mask at {hh}p: "
+              + timing_line(times[hh]), flush=True)
+    bits, words, us8 = batched[BATCH]
+    b8 = {"ms": cuda_ms(lambda: K.window_crop(bits, words, w, h // 2, w // 2, margin)),
+          **bound_of(BATCH, h // 2, w // 2)}
+    print(f"window_crop: B={BATCH} {h // 2}x{w // 2} windows of {h}x{w} masks (one launch): wrapper {b8['ms']:.4f} "
+          f"ms, device {us8:.2f} us per batch ({us8 / BATCH:.2f} per frame) beside its bound {b8['bound_ms']:.5f} ms "
+          f"({b8['bound_by']}); {calls} calls held against plain, every byte equal", flush=True)
+    return {
+        "name": "window_crop", "route": "cuda", "source": "smh_tpu_torch/csrc/window_crop.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:815", "max_abs_err": 0, **times[1080], "library_ms": None,
+        "shape": "411x493 of 822x986", "device_us_4k": times[2160]["device_us"], "device_us_b8": us8,
+    }
+
+
+def phase_ocr_band(dev: torch.device) -> dict:
+    """Kernel 11 (csrc/ocr_band.cu), the OCR row band and the keep bits,
+    byte-equal to its plain twin on the card (every section), banded
+    (binary and gray) and unbanded (binary): on testing.ocr_band_cases (a
+    textless quadrant, text on the first or last row or near the bottom,
+    band == h, a single text pixel, text at the cluster's strip seams,
+    ragged widths), kernel 6's outputs on random text-like quadrants at both
+    quadrant shapes at every rung of the band ladder, the verify frame's
+    quadrant at 1080p and 4K, and B = 1, 3 and 8 quadrants cut from the rows
+    of one buffer (kernel 6's batch; == the per-frame kernel); one launch
+    per call, no memset (profiler). Timed on the verify frame's gray band
+    at 1080p and 4K and on the unbanded keep bits at B = 8 beside its
+    bound."""
+    from smh_tpu_torch import testing
+    from smh_tpu_torch.ocr.engine import OCR_BINARY_THRESHOLD
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision import cuda_backend as cb
+
+    rng = np.random.default_rng(31)
+    calls = 0
+
+    def check(text, sbits, ocr, inline: str, band, label: str) -> tuple:
+        nonlocal calls
+        before = K.LAUNCHES["ocr_band"]
+        got = K.ocr_band(text, sbits, ocr, inline, band)
+        require(K.LAUNCHES["ocr_band"] == before + 1, f"ocr_band: not one launch for {label}")
+        want = K.ocr_band_plain(text, sbits, ocr, inline, band)
+        require(len(got) == len(want), f"ocr_band sections ({label})")
+        for k, (g_, w_) in enumerate(zip(got, want)):
+            require(g_.shape == w_.shape and g_.dtype == w_.dtype, f"ocr_band section {k} shape/dtype ({label})")
+            if not torch.equal(g_, w_):
+                at = torch.nonzero(g_ != w_)[:8].tolist()
+                raise RuntimeError(f"check failed: ocr_band section {k} kernel != plain ({label}, {inline}, band "
+                                   f"{band}) at {at}")
+        calls += 1
+        return got
+
+    def every_route(text, sbits, ocr, bands, label: str) -> None:
+        check(text, sbits, ocr, "binary", None, f"{label} unbanded")
+        for band in bands:
+            for inline in ("binary", "gray"):
+                check(text, sbits, ocr, inline, band, f"{label} band {band}")
+
+    def on_card(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    cases = testing.ocr_band_cases()
+    for name, (ocr, band) in cases.items():
+        h, w = ocr.shape
+        sbits = on_card(rng.integers(0, 256, (h, (w + 7) // 8), dtype=np.uint8))
+        every_route(on_card((ocr < OCR_BINARY_THRESHOLD).astype(np.uint8)), sbits, on_card(ocr), (band,), name)
+    print(f"ocr_band: kernel == plain on the edge cases {sorted(cases)}, banded (binary, gray) and unbanded",
+          flush=True)
+    for h, w in ((411, 493), (822, 986)):
+        for share in (0.005, 0.05, 0.5):
+            q = torch.from_numpy(np.moveaxis(testing.text_rgb(rng, h, w, share), -1, 0).copy()).to(dev)
+            out = K.brq_preprocess(q[0], q[1], q[2], K.classify_luma_planes(q[0], q[1], q[2])[1])
+            every_route(out["text"], out["scales_bits"], out["ocr_img"], cb._dim_ladder(h),
+                        f"kernel 6's {h}x{w} share {share}")
+    print("ocr_band: kernel == plain on kernel 6's outputs over random text-like quadrants at 411x493 and 822x986 "
+          "at every rung of the band ladder", flush=True)
+    verify = {}
+    for w, h in LIVE_SIZES:
+        out = K.brq_preprocess(*map_brq(frame_for(w, h), dev))
+        qh = out["text"].shape[0]
+        band = cb._dim_ladder(qh)[1]
+        every_route(out["text"], out["scales_bits"], out["ocr_img"], cb._dim_ladder(qh), f"verify frame {w}x{h}")
+        smeta = check(out["text"], out["scales_bits"], out["ocr_img"], "gray", band, f"verify {w}x{h}")[0]
+        oy0, oy1, b0 = smeta.cpu().view(torch.int32).tolist()
+        require(0 <= oy0 < oy1 <= qh and b0 == min(oy0, qh - band), f"the verify frame's text rows {oy0}..{oy1}, "
+                f"band at {b0}, at {w}x{h}")
+        verify[h] = (out, band)
+
+    h, w = 822, 986
+    batched = {}
+    for bsz in BATCH_SIZES:
+        rows = torch.zeros((bsz, 3 * h * w + 37), dtype=torch.uint8, device=dev)
+        for i in range(bsz):
+            rgb = testing.text_rgb(rng, h, w, 0.01 * (i + 1))
+            rows[i, : 3 * h * w] = torch.from_numpy(np.moveaxis(rgb[..., ::-1], -1, 0).reshape(-1)).to(dev)
+        planes = rows[:, : 3 * h * w].view(bsz, 3, h, w)
+        b8, g8, r8 = planes[:, 0], planes[:, 1], planes[:, 2]
+        luma = K.classify_luma_planes(r8, g8, b8)[1]
+        out = K.brq_preprocess(*(p[:, h // 2 :, w // 2 :] for p in (r8, g8, b8, luma)))
+        args = (out["text"], out["scales_bits"], out["ocr_img"])
+        for inline, band in (("binary", None), ("binary", 51), ("gray", 51)):
+            got = check(*args, inline, band, f"B={bsz} strided")
+            for i in range(bsz):
+                one = K.ocr_band(*(a[i] for a in args), inline, band)
+                require(all(torch.equal(g_[i], o_) for g_, o_ in zip(got, one)), f"ocr_band B={bsz} frame {i}")
+        prof = device_profile(lambda: K.ocr_band(*args, "binary"), names=("ocr_band",))
+        require(prof["launches"] == 1.0 and prof["named"]["ocr_band"] == 1.0,
+                f"ocr_band B={bsz}: {prof['launches']} CUDA rows per call (kernels and memsets)")
+        batched[bsz] = (args, prof["named_us"]["ocr_band"])
+    print(f"ocr_band: B = {BATCH_SIZES} quadrants of {h // 2}x{w // 2} (kernel 6's outputs over one buffer's rows) "
+          f"== plain and == the per-frame kernel, unbanded and banded; one CUDA launch per call, no memset "
+          f"(profiler); device us per call, unbanded {({b: round(v[1], 2) for b, v in batched.items()})}", flush=True)
+
+    def bound_of(bsz: int, qh: int, qw: int, band) -> dict:
+        # the keep plane in (the band's start needs all of it); the band's
+        # rows in and out (banded) or the keep bits out (unbanded)
+        bpr = (qw + 7) // 8
+        moved = qh * qw + (qh * bpr if band is None else 2 * band * (bpr + qw) + K.BAND_META)
+        return bound(bsz * moved, bsz * 2 * qh * qw)
+
+    times = {}
+    for hh, (out, band) in verify.items():
+        args = (out["text"], out["scales_bits"], out["ocr_img"], "gray", band)
+        prof = device_profile(lambda: K.ocr_band(*args), names=("ocr_band",))
+        require(prof["launches"] == 1.0, f"ocr_band: {prof['launches']} CUDA rows per call")
+        times[hh] = {
+            "ms": cuda_ms(lambda: K.ocr_band(*args)),
+            "plain_ms": cuda_ms(lambda: K.ocr_band_plain(*args), n=10),
+            "device_us": prof["named_us"]["ocr_band"], **bound_of(1, *out["text"].shape, band),
+        }
+        print(f"ocr_band: the gray band of {band} rows of the verify frame's {out['text'].shape[0]}x"
+              f"{out['text'].shape[1]} quadrant at {hh}p: " + timing_line(times[hh]), flush=True)
+    args, us8 = batched[BATCH]
+    b8 = {"ms": cuda_ms(lambda: K.ocr_band(*args, "binary")), **bound_of(BATCH, h // 2, w // 2, None)}
+    print(f"ocr_band: B={BATCH} unbanded keep bits of {h // 2}x{w // 2} quadrants (one launch): wrapper "
+          f"{b8['ms']:.4f} ms, device {us8:.2f} us per batch ({us8 / BATCH:.2f} per frame) beside its bound "
+          f"{b8['bound_ms']:.5f} ms ({b8['bound_by']}); {calls} calls held against plain, every byte equal",
+          flush=True)
+    return {
+        "name": "ocr_band", "route": "cuda", "source": "smh_tpu_torch/csrc/ocr_band.cu",
+        "replaces": "smh_tpu/ops/pipeline.py:826", "max_abs_err": 0, **times[1080], "library_ms": None,
+        "shape": f"gray band of {verify[1080][1]} rows of 411x493", "device_us_4k": times[2160]["device_us"],
+        "device_us_b8": us8,
+    }
+
+
 def phase_repeated(dev: torch.device) -> None:
     """Kernels 6, 7 and 9 called 100 times each, in turns, alternating
     shapes, batch sizes and budgets (every tenth call on a second stream,
@@ -2045,7 +2336,7 @@ def phase_transports(dev: torch.device) -> dict:
             torch.cuda.synchronize()
             for name, n in K.LAUNCHES.items():
                 launches[name] += n
-            require(all(K.LAUNCHES[n] > 0 for n in EVERY_PASS + ("hostpack",)),
+            require(all(K.LAUNCHES[n] > 0 for n in EVERY_PASS + ("hostpack",) + K.WINDOW_PASS + K.BAND_PASS),
                     f"transports skipped a kernel: {K.LAUNCHES}")
     print("transports: D2H bytes per frame " + json.dumps(d2h), flush=True)
     return launches
@@ -2208,6 +2499,129 @@ def phase_timing(dev: torch.device, card: str) -> None:
               f"memset/copy rows; among the kernels {named}), device busy "
               f"{per_frame['device_ms']:.3f} ms per frame (profiler, {per_frame['frames']} warm frames) on {card}",
               flush=True)
+
+
+def binary_flagged():
+    """smhocr's reader without the device read (binary_ok and image_derived,
+    device_ok False): the binary band route."""
+    from smh_tpu_torch.ocr.smhocr import SmhOcrEngine
+
+    class BinaryFlagged(SmhOcrEngine):
+        device_ok = False
+
+    return BinaryFlagged()
+
+
+@functools.lru_cache(maxsize=None)
+def legend_pan_frames(w: int, h: int) -> tuple:
+    """frame_for's marker line with the scale legend moving 2 px right a
+    frame (at 1080p scale): the marker's window fits every frame and the
+    scales checksum changes every frame, so the scales images stay inline."""
+    from smh_tpu_torch import testing
+
+    k = w // 1920
+    (x0, y0), (x1, y1) = MARKER[0]
+    return tuple(
+        testing.make_frame(
+            w, h, marker_lines=[((x0 * k, y0 * k), (x1 * k, y1 * k))],
+            scale_texts=[("300m", ((60 + 2 * i) * k, 170 * k))],
+            scale_bars=[((60 + 2 * i) * k, 170 * k + 30, 120 * k, 1)],
+        )
+        for i in range(DRAG_FRAMES)
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def short_drag_frames(w: int, h: int) -> tuple:
+    """A marker drag whose line stays inside BatchPipeline's half-size
+    window with its margin (the far end from (300, 320) moving 8 px right
+    and 5 px up a frame, at 1080p scale), with frame_for's scale legend."""
+    from smh_tpu_torch import testing
+
+    k = w // 1920
+    return tuple(
+        testing.make_frame(
+            w, h, marker_lines=[((120 * k, 150 * k), ((300 + 8 * i) * k, (320 - 5 * i) * k))],
+            scale_texts=[("300m", (60 * k, 170 * k))], scale_bars=[(60 * k, 170 * k + 30, 120 * k, 1)],
+        )
+        for i in range(DRAG_FRAMES)
+    )
+
+
+def phase_routes(dev: torch.device, card: str) -> None:
+    """With SMH_SPARSE=0, torch.profiler's CUDA rows per warm sync frame of
+    the window + gray band route (a Tesseract-flagged engine) and of the
+    window + binary band route (smhocr without the device read), over
+    frame_for's marker with a panning legend (the ladders settled first):
+    kernels 1-3 and 6-11 once each and no other kernel (9, no scales read),
+    at most 3 memset/copy rows; then per delta batch of BatchPipeline(batch=8)
+    with its half-size window and the unbanded binary keep bits over a
+    marker drag that stays in the window: each of those kernels once and no
+    other, at most 3 memset/copy rows (a window miss would add the fetch of
+    its frames' full mask)."""
+    from smh_tpu_torch.squadex.capture import Frame
+    from smh_tpu_torch.ops import kernels as K
+    from smh_tpu_torch.vision.batch import BatchPipeline
+
+    # The pass's kernels but the scales read, the delta apply, the window
+    # crop and the OCR band.
+    names = tuple(n for n in K.FUSED_PASS if n != "scales_read") + K.DELTA_PASS + K.WINDOW_PASS + K.BAND_PASS
+    with sparse_off():
+        for w, h in LIVE_SIZES:
+            frames = legend_pan_frames(w, h)
+            for label, factory, inline in (("window + gray band", tesseract_flagged, "gray"),
+                                           ("window + binary band", binary_flagged, "binary")):
+                state = new_state(dev, engine=factory())
+                try:
+                    for i in range(3 * len(frames)):  # the window and band ladders settle
+                        require(state.process(Frame(frames[i % len(frames)], 96)) is not None, "map gate closed")
+                    be = state.delegate.backend
+                    before = dict(be.stats)
+                    at = [0]
+
+                    def step():
+                        at[0] += 1
+                        state.process(Frame(frames[at[0] % len(frames)], 96))
+
+                    prof = device_profile(step, n=len(frames), names=names)
+                    f, after = be._dispatch_flags, dict(be.stats)
+                finally:
+                    state.close()
+                tag = f"{w}x{h} {label}"
+                require(f.sparse is None and f.crop_h is not None and f.inline == inline and f.band is not None,
+                        f"{tag}: not the route: {f}")
+                require(all(after[k] == before[k] for k in ("lsd_window_misses", "scales_band_misses",
+                                                             "scalespack_fetches")),
+                        f"{tag}: misses or fetches while profiled: {before} -> {after}")
+                require(prof["named"] == {n: 1.0 for n in names}, f"{tag}: not one launch of each kernel per sync "
+                        f"frame: {prof['named']}")
+                rows = prof["launches"] - prof["kernels"]
+                require(prof["kernels"] == len(names) and rows <= 3,
+                        f"{tag}: {prof['kernels']} kernels and {rows} memset/copy rows per sync frame")
+                named = ", ".join(f"{n} {prof['named_us'][n]:.2f}" for n in names)
+                print(f"routes: sync process() {tag} (window {f.crop_h}x{f.crop_w}, band {f.band}): "
+                      f"{prof['kernels']:.1f} kernels ({named} us) and {rows:.1f} memset/copy rows per frame "
+                      f"{prof['rows']}, device "
+                      f"busy {prof['us'] / 1e3:.4f} ms per frame (profiler, {len(frames)} warm frames) on {card}",
+                      flush=True)
+            batches = _batches(short_drag_frames(w, h), BATCH)
+            bp = BatchPipeline(w, h, batch=BATCH, ocr_engine=binary_flagged(), device=dev)
+            try:
+                require(bp.crop_h is not None and bp.sparse_budget is None and bp._scales_inline() == "binary",
+                        f"{w}x{h} batch: not the window + binary route")
+                for b in batches:
+                    bp.process(b)
+                prof = device_profile(lambda: bp.process(batches[1]), n=1, names=names, tries=6)
+            finally:
+                bp.close()
+            tag = f"{w}x{h} batch window + binary B={BATCH}"
+            require(prof["named"] == {n: 1.0 for n in names}, f"{tag}: {prof['named']}")
+            rows = prof["launches"] - prof["kernels"]
+            require(prof["kernels"] == len(names) <= MAX_KERNELS_PER_PASS and rows <= 3,
+                    f"{tag}: {prof['kernels']} kernels and {rows} memset/copy rows per delta batch {prof['rows']}")
+            print(f"routes: {tag} ({bp.crop_h}x{bp.crop_w}): {prof['kernels']:.0f} kernels and "
+                  f"{rows:.0f} memset/copy rows per delta batch {prof['rows']}, device "
+                  f"{prof['kernel_us'] / 1e3:.4f} ms per batch on {card}", flush=True)
 
 
 def launches_per_frame(state, frame_np, frames: int = 5) -> dict:
@@ -2435,8 +2849,9 @@ def phase_live(dev: torch.device, card: str) -> dict:
 
 def phase_live_window(dev: torch.device, card: str) -> dict:
     """The panning drag, pipelined, threaded and uncapped, with SMH_SPARSE=0
-    and the gray band (a Tesseract-flagged engine): window rungs and band
-    gathers ride the submit half, which must not sync the host."""
+    and the gray band (a Tesseract-flagged engine): the window crop and the
+    band (kernels 10 and 11, each launched) ride the submit half, which must
+    not sync the host."""
     from smh_tpu_torch.squadex.capture import Frame
     from smh_tpu_torch.ops import kernels as K
 
@@ -2469,6 +2884,7 @@ def phase_live_window(dev: torch.device, card: str) -> dict:
                 for name, n in run.items():
                     launches[name] += n
                 label = f"{w}x{h} SMH_SPARSE=0 gray band"
+                require(all(run[n] > 0 for n in K.WINDOW_PASS + K.BAND_PASS), f"{label}: launches {run}")
                 require(not errors.messages, f"{label}: frame errors {errors.messages}")
                 require(len(t_up) >= want, f"{label}: {len(t_up)} updates in 120 s")
                 require(all(i >= 0 for _, i, _ in t_up), f"{label}: updates outside the truth set")
@@ -3300,6 +3716,8 @@ def main() -> int:
     kernels["mask_words"] = timed_phase("mask_words", phase_mask_words, dev)
     kernels["delta_apply"] = timed_phase("delta_apply", phase_delta_apply, dev)
     kernels["hostpack"] = timed_phase("hostpack", phase_hostpack, dev)
+    kernels["window_crop"] = timed_phase("window_crop", phase_window_crop, dev)
+    kernels["ocr_band"] = timed_phase("ocr_band", phase_ocr_band, dev)
     timed_phase("repeated", phase_repeated, dev)
     # Before the traces of thousands of launches (phase_timing, phase_batch):
     # late in a run, short traces lost most of their records four times
@@ -3309,6 +3727,7 @@ def main() -> int:
     main_paths += [phase_slice(dev), phase_dense(dev), phase_transports(dev), phase_debug(dev),
                    phase_device_engine(dev)]
     phase_timing(dev, card)
+    timed_phase("routes", phase_routes, dev, card)
     phase_loop(dev)
     main_paths += [phase_live(dev, card), phase_live_window(dev, card), phase_app(dev)]
     main_paths.append(timed_phase("batch", phase_batch, dev, card))

@@ -83,6 +83,12 @@ _SIGNATURES = {
     #  ui_off, B, scratch, stream); steps, pitches and strides in bytes
     "smh_hostpack": [_VP, _VP, _VP, _I, _I64, _I64, _I64, _I, _I, _VP, _I64, _I, _I, _I, _I, _I, _VP, _I, _VP,
                      _I64, _I, _I, _I, _VP, _VP],
+    # (bits, bits_stride (bytes), H, W, words, words_stride (i32s), crop_h,
+    #  crop_w, margin, B, out, out_stride (bytes), stream)
+    "smh_window_crop": [_VP, _I64, _I, _I, _VP, _I64, _I, _I, _I, _I, _VP, _I64, _VP],
+    # (text, text_stride, sbits, sbits_stride, ocr, ocr_stride, h, w, band,
+    #  binary, B, out, out_stride, stream); strides in bytes
+    "smh_ocr_band": [_VP, _I64, _VP, _I64, _VP, _I64, _I, _I, _I, _I, _I, _VP, _I64, _VP],
 }
 
 _lock = threading.Lock()

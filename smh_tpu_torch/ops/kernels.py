@@ -1,11 +1,23 @@
 """The fused pass's hand-written CUDA kernels (all but the ray march and
 the scales read), their wrappers, their plain PyTorch twins, and the launch
-counts of all nine of the port's kernels (the fourth, the ray march, lives
-in ops/lsd.py; the fifth, the scales read, in ops/scales_device.py).
+counts of all eleven of the port's kernels (the fourth, the ray march,
+lives in ops/lsd.py; the fifth, the scales read, in ops/scales_device.py):
+
+   1 classify_luma    pallas_kernels.py::_classify_luma_kernel
+   2 quiet_walk       pallas_kernels.py::_quiet_walk_kernel_factory + walk tail
+   3 fused_mask       pallas_kernels.py::_fused_mask_kernel[_hbm]
+   4 ray_march        smh_tpu/ops/lsd.py::_march_span, _finalize, _march
+   5 scales_read      smh_tpu/ops/scales_device.py::scales_records
+   6 brq_preprocess   pipeline.py: _ocr_preprocess_planes, pack_bits, _weighted_check x2
+   7 mask_words       pipeline.py: _mask_bbox, _sparse_words
+   8 delta_apply      pipeline.py: the delta dispatches' scatter and lax.scan
+   9 hostpack         pipeline.py: the ui _weighted_check, _red_gate_roi, the concatenate
+  10 window_crop      pipeline.py: the window crop's clip, dynamic_slice and pack_bits
+  11 ocr_band         pipeline.py: the OCR row band and the binary keep bits
 
 Counterpart of smh_tpu/ops/pallas_kernels.py, of the regions of smh_tpu's
 jitted fused pass (smh_tpu/ops/pipeline.py::_analyze_flat_core) that
-kernels 6, 7 and 9 take, and of the delta dispatches' scatter (kernel 8).
+kernels 6, 7 and 9-11 take, and of the delta dispatches' scatter (kernel 8).
 Each wrapper takes the plain version for tensors on the CPU, launches its
 kernel for tensors on a CUDA device, and raises for anything else: there
 is no fallback from the kernel to the plain version and no switch that
@@ -101,6 +113,22 @@ they compute each frame's plain result.
   and the sections the other kernels wrote, and writes every byte of the
   hostpack; bound by the launch and one round trip of its reduction, which
   sums in a scratch every launch leaves zeroed (_scratch), as kernel 6's.
+* window_crop -> csrc/window_crop.cu (kernel 10)
+  Replaces the window crop of smh_tpu's _pack_outputs (XLA ops): the
+  origin jnp.clip(bbox - margin), the dynamic_slice of lsd_bool, the meta
+  and the window's pack_bits. From kernel 3's bits and kernel 7's bbox it
+  writes the meta and the window's bits, a thread an output byte shifted
+  from the two source bytes under it. Bound by the launch and two
+  dependent loads (the bbox, then the bits), not by its ~26 KB.
+* ocr_band -> csrc/ocr_band.cu (kernel 11)
+  Replaces the OCR row band of smh_tpu's _pack_outputs (XLA ops): the keep
+  mask's row bbox by two _first_true_counts, the band's start, the smeta
+  and the dynamic_slices of the scales bits and of pack_bits(keep) or
+  ocr_img; and the unbanded binary transport's pack_bits(keep). Banded, a
+  thread block cluster a frame finds the text rows (each block a strip,
+  joined through distributed shared memory) and copies the band; unbanded,
+  warps pack the keep mask by ballots. Bound by the launch and the
+  reduction over the whole keep plane before the copy.
 """
 
 from __future__ import annotations
@@ -118,7 +146,7 @@ from ..ocr.engine import OCR_BINARY_THRESHOLD
 
 LAUNCHES = {
     "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
-    "brq_preprocess": 0, "mask_words": 0, "delta_apply": 0, "hostpack": 0,
+    "brq_preprocess": 0, "mask_words": 0, "delta_apply": 0, "hostpack": 0, "window_crop": 0, "ocr_band": 0,
 }
 # The kernels every smhocr fused pass launches (ray_march runs on the
 # lsd_engine="cuda" path only; its wrapper is ops/lsd.py::ray_march; the
@@ -128,6 +156,12 @@ FUSED_PASS = ("classify_luma", "quiet_walk", "fused_mask", "brq_preprocess", "ma
 # The kernel a delta pass launches besides (a full upload has none): one a
 # frame, one a batch.
 DELTA_PASS = ("delta_apply",)
+# The kernel a pass launches besides where the marker mask travels as a
+# window crop (SMH_SPARSE=0, the sparse -> window hand-over, a batch's
+# lsd_window), and the one where the scales travel as a row band or as
+# binary images: one a frame, one a batch.
+WINDOW_PASS = ("window_crop",)
+BAND_PASS = ("ocr_band",)
 
 # Tile of the quiet-walk kernel (TH rows x TW pixels in csrc/quiet_walk.cu):
 # the seams the tests and the chip smoke place their shapes around.
@@ -166,6 +200,10 @@ DELTA_MAX_FRAMES = 4096
 # the u32s of its scratch a frame (three u64 slots, a 128-byte line each).
 HOSTPACK_MAX_SECTIONS = 16
 HOSTPACK_SCRATCH = 3 * 32
+# Kernels 10 and 11: the bytes of the meta before the window's bits (6
+# i32) and before the band's rows (3 i32).
+WINDOW_META = 24
+BAND_META = 12
 
 
 def reset_launches() -> None:
@@ -875,3 +913,152 @@ def hostpack_args(ui_planes, btn, sections, own_table: bool = False) -> tuple:
 
 # The button's colour (r, g, b) and tolerance, as smh_hostpack takes them.
 _BUTTON_RGB_TOL = (*(int(c) for c in C.CLOSE_DEPLOYMENT_BUTTON_COLOR), int(C.CLOSE_DEPLOYMENT_BUTTON_TOLERANCE))
+
+
+# -- kernel 10: the window crop --------------------------------------------------
+
+
+def window_crop_plain(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, crop_w: int,
+                      margin: int) -> tuple:
+    """Plain PyTorch twin of the window crop kernel: unpack_bits_bool, a
+    gather of the window at the clamped origin and pack_bits, with the meta
+    -- window_crop's outputs."""
+    from . import pipeline as opp
+
+    lead = tuple(bits.shape[:-2])
+    cy0 = torch.clamp(words[..., 0] - margin, 0, bits.shape[-2] - crop_h)
+    cx0 = torch.clamp(words[..., 2] - margin, 0, w - crop_w)
+    crop = opp.pack_bits(opp._window_at(opp.unpack_bits_bool(bits, w), cy0, cx0, crop_h, crop_w))
+    meta = torch.cat([words[..., :4], torch.stack([cy0, cx0], dim=-1)], dim=-1)
+    return opp._bytes(meta, lead), crop.reshape(*lead, -1)
+
+
+def window_crop(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, crop_w: int, margin: int) -> tuple:
+    """The crop_h x crop_w window of the dilated marker mask's bit plane
+    (kernel 3's lsd_bits, u8 [H, ceil(w/8)] or [B, H, ceil(w/8)], each frame
+    contiguous, the frames any stride(0) apart) at its bbox (lanes 0-3 of
+    kernel 7's i32 words [..., n]) less `margin`, clamped into the plane ->
+    (meta u8 [..., 24]: y0, y1, x0, x1, cy0, cx0 as i32; the window's bits
+    u8 [..., crop_h * ceil(crop_w/8)], MSB first, pad bits zero): the
+    hostpack's lsd_meta and lsd_crop. One launch for a batch (each frame its
+    own origin), no memset, no host sync."""
+    if bits.dtype != torch.uint8 or bits.dim() not in (2, 3) or bits.shape[-1] != (w + 7) // 8 or bits.numel() == 0:
+        raise ValueError(f"expected u8 [H, {(w + 7) // 8}] or [B, H, {(w + 7) // 8}] bits, got "
+                         f"{bits.dtype} {tuple(bits.shape)}")
+    lead = tuple(bits.shape[:-2])
+    if words.dtype != torch.int32 or tuple(words.shape[:-1]) != lead or words.dim() != len(lead) + 1 \
+            or words.shape[-1] < 4:
+        raise ValueError(f"expected i32 [*{lead}, n >= 4] words, got {words.dtype} {tuple(words.shape)}")
+    h = bits.shape[-2]
+    if not (0 < crop_h <= h and 0 < crop_w <= w) or margin < 0:
+        raise ValueError(f"a {crop_h}x{crop_w} window (margin {margin}) of a {h}x{w} mask")
+    device = bits.device
+    if words.device != device:
+        raise ValueError(f"bits on {device}, words on {words.device}")
+    if device.type == "cpu":
+        return window_crop_plain(bits, words, w, crop_h, crop_w, margin)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if words.stride(-1) != 1:
+        raise ValueError("the kernel reads words whose lanes are contiguous")
+    stride = _frame_stride((bits,))
+    bsz = bits.shape[0] if bits.dim() == 3 else 1
+    n = crop_h * ((crop_w + 7) // 8)
+    row = -(-(WINDOW_META + n) // 4) * 4
+    out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
+    lib = _build.load()
+    with _on(device):
+        code = lib.smh_window_crop(bits.data_ptr(), stride, h, w, words.data_ptr(), words.stride(0) if lead else 0,
+                                   crop_h, crop_w, margin, bsz, out.data_ptr(), row, _raw_stream(device.index))
+    _build.check(code, "smh_window_crop")
+    LAUNCHES["window_crop"] += 1
+    return out[..., :WINDOW_META], out[..., WINDOW_META : WINDOW_META + n]
+
+
+# -- kernel 11: the OCR row band and the keep bits -----------------------------------
+
+
+def ocr_band_plain(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tensor, inline: str,
+                   band: int | None = None) -> tuple:
+    """Plain PyTorch twin of the OCR band kernel: the keep mask's row flags
+    and their first-true searches, the band's start, gathers of its rows
+    and pack_bits of the keep mask -- ocr_band's outputs."""
+    from . import pipeline as opp
+    from . import scales_device as sd
+
+    keep = text != 0
+    lead = tuple(text.shape[:-2])
+    if band is None:
+        return scales_bits.reshape(*lead, -1), opp.pack_bits(keep).reshape(*lead, -1)
+    brq_h = keep.shape[-2]
+    krows = keep.any(dim=-1)
+    oy0 = sd._first_true(krows)
+    oy1 = brq_h - sd._first_true(krows.flip(-1))
+    b0 = torch.clamp(oy0, 0, brq_h - band)
+    zero = torch.zeros_like(b0)
+    other = opp.pack_bits(keep) if inline == "binary" else ocr_img
+    return (
+        opp._bytes(torch.stack([oy0, oy1, b0], dim=-1).to(torch.int32), lead),
+        opp._window_at(scales_bits, b0, zero, band, scales_bits.shape[-1]).reshape(*lead, -1),
+        opp._window_at(other, b0, zero, band, other.shape[-1]).reshape(*lead, -1),
+    )
+
+
+def _plane_layout(t: torch.Tensor, w: int, name: str) -> int:
+    """The frame stride in bytes of u8 [h, w] or [B, h, w] rows that lie w
+    bytes apart (any frame stride), or ValueError."""
+    if t.stride(-1) != 1 or (t.shape[-2] > 1 and t.stride(-2) != w):
+        raise ValueError(f"the kernel reads {name} rows {w} bytes apart: strides {tuple(t.stride())}")
+    return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
+
+
+def ocr_band(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tensor, inline: str,
+             band: int | None = None) -> tuple:
+    """The quadrant's inline scales sections, in the hostpack's order, from
+    kernel 6's outputs: the keep (text) plane u8 0/1 [h, w] or [B, h, w],
+    the scales bits u8 [..., h, ceil(w/8)] and ocr_img u8 [..., h, w] (rows
+    contiguous; the frames any stride apart). inline "binary" or "gray".
+    band None ("binary" only): (the scales bits, the packed keep mask u8
+    [..., h * ceil(w/8)]); band rows: (smeta u8 [..., 12]: oy0, oy1 and b0
+    as i32, the keep mask's first text row, one past its last, and the
+    band's start clamp(oy0, 0, h - band); rows b0 .. b0 + band of the scales
+    bits; the same rows of the packed keep mask ("binary") or of ocr_img
+    ("gray")), each u8 [..., n]. One launch for a batch, no memset, no host
+    sync."""
+    if inline not in ("binary", "gray") or (band is None and inline != "binary"):
+        raise ValueError(f"the kernel takes the binary transport or a band: {inline!r}, band {band}")
+    if text.dtype != torch.uint8 or text.dim() not in (2, 3) or text.numel() == 0:
+        raise ValueError(f"expected a u8 [h, w] or [B, h, w] text plane, got {text.dtype} {tuple(text.shape)}")
+    lead, (h, w) = tuple(text.shape[:-2]), text.shape[-2:]
+    bpr = (w + 7) // 8
+    for t, shape in ((scales_bits, (*lead, h, bpr)), (ocr_img, (*lead, h, w))):
+        if t.dtype != torch.uint8 or tuple(t.shape) != shape or t.device != text.device:
+            raise ValueError(f"expected u8 {shape} on {text.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    if band is not None and not 0 < band <= h:
+        raise ValueError(f"a band of {band} rows of a {h}-row quadrant")
+    device = text.device
+    if device.type == "cpu":
+        return ocr_band_plain(text, scales_bits, ocr_img, inline, band)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    stride = _frame_stride((text,))
+    bsz = text.shape[0] if text.dim() == 3 else 1
+    if band is None:
+        row = h * bpr
+        out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
+        args = (None, 0, None, 0)
+    else:
+        nb, nx = band * bpr, band * (bpr if inline == "binary" else w)
+        row = -(-(BAND_META + nb + nx) // 4) * 4
+        out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
+        args = (scales_bits.data_ptr(), _plane_layout(scales_bits, bpr, "scales bits"),
+                ocr_img.data_ptr(), _plane_layout(ocr_img, w, "ocr_img"))
+    lib = _build.load()
+    with _on(device):
+        code = lib.smh_ocr_band(text.data_ptr(), stride, *args, h, w, band or 0, int(inline == "binary"), bsz,
+                                out.data_ptr(), row, _raw_stream(device.index))
+    _build.check(code, "smh_ocr_band")
+    LAUNCHES["ocr_band"] += 1
+    if band is None:
+        return scales_bits.reshape(*lead, -1), out
+    return out[..., :BAND_META], out[..., BAND_META : BAND_META + nb], out[..., BAND_META + nb : BAND_META + nb + nx]

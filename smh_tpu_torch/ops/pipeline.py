@@ -8,8 +8,9 @@ a frame: marker classify + luma (CUDA kernel 1), the dilated marker mask's
 bit plane (CUDA kernel 3), the OCR preprocess, scales binarize, text mask
 and their checksums over the map's bottom-right quadrant (CUDA kernel 6),
 the minimap rect (CUDA kernel 2), the on-device scales read (CUDA kernel
-5), the mask bbox and sparse word compaction (CUDA kernel 7) or the window
-crop, then the red gate and the ui checksum, written with every other
+5), the mask bbox and sparse word compaction (CUDA kernel 7), the window
+crop (CUDA kernel 10), the OCR row band or the binary keep bits (CUDA
+kernel 11), then the red gate and the ui checksum, written with every other
 section into ONE u8 hostpack (CUDA kernel 9) whose bytes equal the JAX
 package's hostpack. `analyze_delta_flat` first rebuilds the frame from a
 device-resident buffer and the changed 32 B chunks of the delta upload
@@ -22,8 +23,9 @@ blocks below take an optional leading batch dimension, and each kernel
 runs ONCE per batch on [B, H, W] planes cut from the rows of the [B,
 padded] upload (kernels 5 and 7: a cluster of blocks per frame).
 
-The window and band origins are device scalars: both are cut by a gather at
-origin + iota (scales_device._window), never by slicing at a host int.
+The window and band origins are device scalars: kernels 10 and 11 compute
+them and cut at them on the device (their plain twins by a gather at origin
++ iota), never by slicing at a host int.
 
 On a CUDA tensor the kernels launch; on a CPU tensor their plain twins run
 (ops/kernels.py, ops/scales_device.py). Nothing here reads a tensor's value on the host or
@@ -400,13 +402,6 @@ def _analyze_map_planes(
     return out
 
 
-def _row_band(plane: torch.Tensor, r0: torch.Tensor, rows: int) -> torch.Tensor:
-    """plane[r0 : r0 + rows] for a device-scalar r0 (in range by
-    construction), as a gather: no host sync."""
-    zero = torch.zeros_like(r0)
-    return sd._window(plane, r0.reshape(1), zero.reshape(1), rows, plane.shape[1])[0]
-
-
 def _ui_check(ui_planes) -> torch.Tensor:
     """The ui checksum, [..., 2] u32 as int64 values < 2^32, of the ui
     planes by kernel 9 with no button and no section (the entries whose
@@ -432,7 +427,9 @@ def _pack_outputs(
     leading [B] dimension) the hostpacks are the rows of a [B, bytes]
     tensor. Kernel 7 reads kernel 3's bits of the map_w-wide mask once for
     its bbox (and, with a sparse budget, its sparse words), in the
-    hostpack's i32 bytes; the scalespack is kernel 6's buffer. Kernel 9
+    hostpack's i32 bytes; kernel 10 cuts the window crop at that bbox and
+    kernel 11 the OCR row band (or packs the binary keep bits) from kernel
+    6's planes; the scalespack is kernel 6's buffer. Kernel 9
     computes the red gate over btn (interleaved BGR u8 [..., bh, bw, 3])
     and the ui checksum and writes them and every other section into the
     hostpack, in one launch."""
@@ -450,38 +447,23 @@ def _pack_outputs(
         meta = word_bytes[..., :24]
         crop_bits = lsd_bits
     else:
-        # Window crop at the bbox less the margin, clamped into the plane.
-        # The origin is a device scalar and not byte aligned, so the window
-        # is gathered from the bool plane and packed afresh.
-        margin = int(LSD_CROP_MARGIN)
-        cy0 = torch.clamp(words[..., 0] - margin, 0, map_h - crop_h)
-        cx0 = torch.clamp(words[..., 2] - margin, 0, map_w - crop_w)
-        crop_bits = pack_bits(_window_at(unpack_bits_bool(lsd_bits, map_w), cy0, cx0, crop_h, crop_w))
-        meta = _bytes(torch.cat([words[..., :4], torch.stack([cy0, cx0], dim=-1)], dim=-1), lead)
+        # Window crop at the bbox less the margin, clamped into the plane:
+        # kernel 10 computes the origin on the device and writes the meta
+        # and the window's bits.
+        meta, crop_bits = kernels.window_crop(lsd_bits, words, map_w, crop_h, crop_w, int(LSD_CROP_MARGIN))
     parts = [meta]  # after the red ratio and the ui checksum, which kernel 9 computes
     banded = with_ocr and scales_inline in ("binary", "gray") and scales_band is not None
     if banded and lead:
         raise ValueError("the scales row band is per frame")
     if with_ocr:
         parts.append(_bytes(out["scheck"], lead))
-        keep = out["text"].view(torch.bool)  # the text mask, ocr_img < OCR_BINARY_THRESHOLD
-        if banded:
-            # OCR text-row band: every text pixel lies in the keep mask's row
+        if banded or scales_inline == "binary":
+            # Kernel 11, from kernel 6's text plane (ocr_img <
+            # OCR_BINARY_THRESHOLD): the packed keep mask, or the OCR
+            # text-row band. Every text pixel lies in the keep mask's row
             # bbox and the bar scan reads at most scales_scan_budget rows
             # below it, so a band anchored at the bbox is read-complete.
-            brq_h = keep.shape[0]
-            krows = keep.any(dim=1)
-            oy0 = sd._first_true(krows)
-            oy1 = brq_h - sd._first_true(krows.flip(0))
-            b0 = torch.clamp(oy0, 0, brq_h - scales_band)
-            parts.append(_bytes(torch.stack([oy0, oy1, b0]).to(I32)))
-            parts.append(_row_band(out["scales_bits"], b0, scales_band).reshape(-1))
-            if scales_inline == "binary":
-                parts.append(_row_band(pack_bits(keep), b0, scales_band).reshape(-1))
-            else:
-                parts.append(_row_band(out["ocr_img"], b0, scales_band).reshape(-1))
-        elif scales_inline == "binary":
-            parts += [out["scales_bits"].reshape(*lead, -1), pack_bits(keep).reshape(*lead, -1)]
+            parts += kernels.ocr_band(out["text"], out["scales_bits"], out["ocr_img"], scales_inline, scales_band)
         elif scales_inline == "gray":
             parts += [out["scales_bits"].reshape(*lead, -1), out["ocr_img"].reshape(*lead, -1)]
         elif scales_inline == "device":

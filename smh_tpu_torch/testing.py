@@ -490,3 +490,83 @@ def mask_bits_cases(budget: int) -> dict:
                 m[k // 8, 32 * j + int(k % min(32, w - 32 * j))] = True
             cases[f"nz_{n}_at_the_seam_{where}"] = (packed(m), w)
     return cases
+
+
+def window_crop_cases(margin: int) -> dict:
+    """{name: (bits u8 [H, ceil(W/8)], W, crop_h, crop_w)}: bit planes (MSB
+    first, pad bits zero) of the marker mask at the edges kernel 10 must get
+    right, for windows at the bbox less `margin`: an empty mask (its origin
+    clamped as JAX clamps y0 = H, x0 = W), the bbox at each border, the
+    origin's column at every value mod 8, ragged crop widths, the last byte
+    of a ragged row under the window, one full dimension (crop_w == W with
+    crop_h < H, and crop_h == H with crop_w < W), the whole plane, 1-row and
+    1-column planes, and dense random planes."""
+    h, w = 97, 203  # 203 = 25 bytes and 3 bits a row
+
+    def one(points, shape=(h, w)) -> np.ndarray:
+        m = np.zeros(shape, bool)
+        for y, x in points:
+            m[y, x] = True
+        return np.packbits(m, axis=1)
+
+    cases = {"empty": (one([]), w, 41, 61)}
+    for name, pts in {"top_left": [(0, 0)], "bottom_right": [(h - 1, w - 1)], "left_column": [(30, 0), (50, 0)],
+                      "right_column": [(30, w - 1), (50, w - 1)], "top_row": [(0, 70), (0, 90)],
+                      "bottom_row": [(h - 1, 70), (h - 1, 90)]}.items():
+        cases[f"border_{name}"] = (one(pts), w, 41, 61)
+    for k in range(8):  # cx0 = 40 + k: every shift of the source bytes
+        cases[f"cx0_mod8_{(40 + k) % 8}"] = (one([(50, margin + 40 + k), (60, margin + 90 + k)]), w, 41, 61)
+    rng = np.random.default_rng(margin)
+    blob = rng.random((h, w)) < 0.3
+    blob[:20], blob[:, :30] = False, False  # the bbox away from the origin
+    for cw in (53, 57, 64, 1):
+        cases[f"ragged_crop_w_{cw}"] = (np.packbits(blob, axis=1), w, 41, cw)
+    cases["last_byte"] = (one([(60, w - 2)]), w, 41, 61)  # cx0 = W - 61: its last byte is the row's
+    cases["full_width"] = (np.packbits(blob, axis=1), w, 41, w)
+    cases["full_height"] = (np.packbits(blob, axis=1), w, h, 61)
+    cases["full_plane"] = (np.packbits(blob, axis=1), w, h, w)
+    cases["one_row"] = (one([(0, 100)], (1, w)), w, 1, 29)
+    cases["one_column"] = (one([(40, 0)], (h, 1)), 1, 33, 1)
+    for i, p in enumerate((0.01, 0.5)):
+        m = rng.random((h, w)) < p
+        cases[f"random_{p}"] = (np.packbits(m, axis=1), w, 41 + 7 * i, 61 + 11 * i)
+    return cases
+
+
+def ocr_band_cases() -> dict:
+    """{name: (ocr_img u8 [h, w], band)}: quadrants at the edges kernel 11
+    must get right (its keep mask is ocr_img < OCR_BINARY_THRESHOLD): a
+    textless quadrant, text on the first or the last row, text near the
+    bottom (the band clamped to the last rows), band == h, a single text
+    pixel, text on the rows around the seams of the cluster's row strips
+    (ceil(h / 8) rows a block), ragged widths (w % 8 and w % 32 != 0), 1-row
+    and narrow quadrants, and dense text."""
+    from .ocr.engine import OCR_BINARY_THRESHOLD
+
+    rng = np.random.default_rng(11)
+    h, w = 83, 203
+
+    def text_at(rows, shape=(h, w), cols=slice(10, 60)) -> np.ndarray:
+        img = np.full(shape, 255, np.uint8)
+        for r in rows:
+            img[r, cols] = rng.integers(0, OCR_BINARY_THRESHOLD, img[r, cols].shape, dtype=np.uint8)
+        return img
+
+    cases = {
+        "textless": (text_at([]), 20),
+        "first_row": (text_at([0]), 20),
+        "last_row": (text_at([h - 1]), 20),
+        "near_bottom": (text_at(range(h - 5, h)), 20),
+        "band_is_h": (text_at([30, 40]), h),
+        "single_pixel": (text_at([41], cols=slice(101, 102)), 16),
+        "last_column": (text_at([7], cols=slice(w - 1, w)), 16),
+        "one_row": (text_at([0], (1, w)), 1),
+        "narrow": (text_at([3, 9], (17, 13), slice(0, 13)), 5),
+        "dense": (rng.integers(0, 256, (h, w), dtype=np.uint8), 33),
+    }
+    per = -(-h // 8)  # rows a block of the cluster
+    for k in (1, 4, 7):
+        cases[f"strip_seam_{k}"] = (text_at([k * per - 1, k * per]), 24)
+    for cw in (1, 31, 33, 64, 493):
+        cases[f"ragged_{cw}"] = (text_at([5, 20], (29, cw), slice(0, cw)), 12)
+    return cases

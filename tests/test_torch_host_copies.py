@@ -109,12 +109,12 @@ COPIES = {
     },
     # Scale texts rendered from the bundled fonts; the screen sizes the
     # port is held at, with a frame for each; the edge cases of the scales
-    # read kernel, of the quadrant preprocess kernel and of the mask words
-    # kernel.
+    # read kernel, of the quadrant preprocess kernel, of the mask words
+    # kernel, of the window crop kernel and of the OCR band kernel.
     "testing.py": {
         "__doc__", "fonts_present", "make_frame", "render_text_mask", "from .ocr.smhocr import FONTS",
         "RESOLUTIONS", "resolution_frame", "scales_read_cases", "text_rgb", "brq_preprocess_cases",
-        "mask_bits_cases",
+        "mask_bits_cases", "window_crop_cases", "ocr_band_cases",
     },
     # --device (the App, its worker and --warmup run on it), no compile cache.
     "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},

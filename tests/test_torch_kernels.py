@@ -207,7 +207,7 @@ def test_build_command_compiles_the_csrc_files_for_sm90a():
     srcs = _build.sources()
     assert {p.name for p in srcs} == {
         "classify_luma.cu", "quiet_walk.cu", "fused_mask.cu", "ray_march.cu", "scales_read.cu",
-        "brq_preprocess.cu", "mask_words.cu", "delta_apply.cu", "hostpack.cu",
+        "brq_preprocess.cu", "mask_words.cu", "delta_apply.cu", "hostpack.cu", "window_crop.cu", "ocr_band.cu",
     }
     assert {p.name for p in _build.headers()} == {"classify.cuh"}
     assert all(p.parent == CSRC for p in srcs)
@@ -307,9 +307,11 @@ def test_classify_launch_counter_untouched_on_cpu():
     kernels.mask_bbox_sparse(p[:, :1], 7, 4)
     kernels.delta_apply(torch.zeros(64, dtype=torch.uint8), torch.zeros(16 * 36, dtype=torch.uint8), 16, 32)
     kernels.hostpack_tail((p,), torch.zeros((2, 3, 3), dtype=torch.uint8), [p[0]])
+    kernels.window_crop(p[:, :1], torch.zeros(7, dtype=torch.int32), 7, 3, 4, 2)
+    kernels.ocr_band(p, p[:, :1], p, "binary", 3)
     assert kernels.LAUNCHES == {
         "classify_luma": 0, "quiet_walk": 0, "fused_mask": 0, "ray_march": 0, "scales_read": 0,
-        "brq_preprocess": 0, "mask_words": 0, "delta_apply": 0, "hostpack": 0,
+        "brq_preprocess": 0, "mask_words": 0, "delta_apply": 0, "hostpack": 0, "window_crop": 0, "ocr_band": 0,
     }
 
 

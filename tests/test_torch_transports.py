@@ -55,7 +55,12 @@ CASES = [
 
 @pytest.mark.parametrize("crop_h,crop_w,inline,band", CASES)
 def test_hostpack_bytes_match_jax(crop_h, crop_w, inline, band):
-    packed = _rois()
+    _assert_hostpack_matches(_rois(), crop_h, crop_w, inline, band)
+
+
+def _assert_hostpack_matches(packed, crop_h, crop_w, inline, band):
+    """The port's hostpack bytes (but the score lanes, +-1) and scalespack
+    equal JAX's; returns the lsd_meta lanes."""
     kw = dict(
         map_h=G.map_h, map_w=G.map_w, btn_h=G.btn_h, btn_w=G.btn_w, grayscale=True,
         crop_h=crop_h, crop_w=crop_w, scales_inline=inline, scales_band=band,
@@ -80,6 +85,50 @@ def test_hostpack_bytes_match_jax(crop_h, crop_w, inline, band):
     if crop_h is not None:
         m = int(tpp.LSD_CROP_MARGIN)
         assert (cy0, cx0) == (min(max(y0 - m, 0), G.map_h - crop_h), min(max(x0 - m, 0), G.map_w - crop_w))
+    return y0, y1, x0, x1, cy0, cx0
+
+
+# Windows at the edges of the window crop (kernel 10): (marker lines, crop_h,
+# crop_w, scales transport, band) -- an empty mask (the origin clamped from
+# y0 = H, x0 = W), an origin column that is no multiple of 8, one full
+# dimension each way (crop_w == W with crop_h < H, crop_h == H with crop_w <
+# W).
+WINDOW_CASES = {
+    "empty_mask": ((), 205, 246, "gray", 51),
+    "cx0_mod8": ((((67, 75), (190, 160)),), 205, 246, "binary", None),
+    "full_width": ((((60, 75), (190, 160)),), 102, G.map_w, "gray", None),
+    "full_height": ((((60, 75), (190, 160)),), G.map_h, 123, "binary", 25),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_CASES))
+def test_window_edges_match_jax(name):
+    lines, crop_h, crop_w, inline, band = WINDOW_CASES[name]
+    y0, y1, x0, x1, cy0, cx0 = _assert_hostpack_matches(_rois(marker_lines=lines), crop_h, crop_w, inline, band)
+    if name == "empty_mask":
+        assert (y0, y1, x0, x1) == (G.map_h, 0, G.map_w, 0)
+    if name == "cx0_mod8":
+        assert cx0 % 8 != 0
+    if name.startswith("full_"):
+        assert (crop_h == G.map_h) != (crop_w == G.map_w)
+
+
+def test_batch_window_and_binary_keep_bits_match_jax():
+    """The batched pass with a window crop and the unbanded binary scales:
+    each frame its own origin (one frame with no marker), every hostpack
+    byte equal to smh_tpu's _analyze_batch_packed."""
+    frames = [
+        _rois(marker_lines=lines) for lines in ((((60, 75), (190, 160)),), (), (((140, 20), (330, 210)),))
+    ]
+    rows = np.stack(frames)
+    kw = dict(map_h=G.map_h, map_w=G.map_w, btn_h=G.btn_h, btn_w=G.btn_w, grayscale=True, crop_h=205, crop_w=246,
+              scales_inline="binary")
+    want = np.asarray(jax.device_get(opp._analyze_batch_packed(jnp.asarray(rows), channels=3, **kw))["hostpack"])
+    got = tpp.analyze_batch_packed_flat(torch.from_numpy(rows), **kw)["hostpack"].numpy()
+    np.testing.assert_array_equal(got, want)
+    off, _ = tpp.hostpack_layout(G.map_h, G.map_w, crop_h=205, crop_w=246, scales_inline="binary")["lsd_meta"]
+    origins = {tuple(got[i, off : off + 24].view(np.int32)[4:]) for i in range(len(frames))}
+    assert len(origins) == len(frames)
 
 
 def test_band_meta_on_textless_and_bottom_text():
