@@ -269,6 +269,11 @@ CLASSIFY_OPS = {"classify_luma": (12, 30), "fused_mask": (10, 30)}
 # Kernels a sync delta frame and a delta batch may launch: the seven of the
 # pass, the delta apply and at most two more.
 MAX_KERNELS_PER_PASS = 10
+# Kernels 10 and 11 as their design before this one ran (a byte a thread;
+# device us on an NVIDIA H100 80GB HBM3 at 700 W, PERF.md's kernel table),
+# printed beside this build's.
+BYTEWISE_US = {"window_crop": "1.43-1.44 / 1.64-1.65, B=8 1.94-1.95",
+           "ocr_band": "gray band 4.95-5.24 / 8.29-8.33, unbanded B=8 7.95-8.27"}
 
 
 def require(cond: bool, msg: str) -> None:
@@ -1609,14 +1614,16 @@ def phase_window_crop(dev: torch.device) -> dict:
     plain twin on the card (meta and window bits): on
     testing.window_crop_cases (an empty mask, the bbox at each border, the
     origin's column at every value mod 8, ragged crop widths, the row's last
-    byte under the window, one full dimension each way, the whole plane,
-    1-row and 1-column planes, random planes), random masks at both map
+    byte under the window, the window at the right border with its origin at
+    every value mod 8, one full dimension each way, the whole plane, 1-row
+    and 1-column planes, random planes), random masks at both map
     shapes at every pair of the window ladder's rungs, the origin's column
     at every value mod 8 at both map shapes, the verify frame's mask at 1080p
     and 4K, and B = 1, 3 and 8 masks cut from the rows of one buffer, each
     frame its own origin (== the per-frame kernel); kernel 7's bbox lanes on
     the card as its input; one launch per call, no memset (profiler). Timed
-    at the 1080p and 4K half-size windows and at B = 8 beside its bound."""
+    at the 1080p and 4K half-size windows and at B = 8 beside its bound and
+    the bytewise design's times."""
     from smh_tpu_torch import consts as C
     from smh_tpu_torch import testing
     from smh_tpu_torch.ops import kernels as K
@@ -1728,6 +1735,10 @@ def phase_window_crop(dev: torch.device) -> dict:
     print(f"window_crop: B={BATCH} {h // 2}x{w // 2} windows of {h}x{w} masks (one launch): wrapper {b8['ms']:.4f} "
           f"ms, device {us8:.2f} us per batch ({us8 / BATCH:.2f} per frame) beside its bound {b8['bound_ms']:.5f} ms "
           f"({b8['bound_by']}); {calls} calls held against plain, every byte equal", flush=True)
+    print(f"window_crop: device us {times[1080]['device_us']:.2f} / {times[2160]['device_us']:.2f}, B={BATCH} "
+          f"{us8:.2f}, beside the bytewise design's {BYTEWISE_US['window_crop']} and the bounds "
+          f"{times[1080]['bound_ms'] * 1e3:.3f} / {times[2160]['bound_ms'] * 1e3:.3f}, B={BATCH} "
+          f"{b8['bound_ms'] * 1e3:.3f} us", flush=True)
     return {
         "name": "window_crop", "route": "cuda", "source": "smh_tpu_torch/csrc/window_crop.cu",
         "replaces": "smh_tpu/ops/pipeline.py:815", "max_abs_err": 0, **times[1080], "library_ms": None,
@@ -1740,14 +1751,16 @@ def phase_ocr_band(dev: torch.device) -> dict:
     byte-equal to its plain twin on the card (every section), banded
     (binary and gray) and unbanded (binary): on testing.ocr_band_cases (a
     textless quadrant, text on the first or last row or near the bottom,
-    band == h, a single text pixel, text at the cluster's strip seams,
-    ragged widths), kernel 6's outputs on random text-like quadrants at both
-    quadrant shapes at every rung of the band ladder, the verify frame's
-    quadrant at 1080p and 4K, and B = 1, 3 and 8 quadrants cut from the rows
-    of one buffer (kernel 6's batch; == the per-frame kernel); one launch
-    per call, no memset (profiler). Timed on the verify frame's gray band
-    at 1080p and 4K and on the unbanded keep bits at B = 8 beside its
-    bound."""
+    band == h, a single text pixel, text at the strip seams of a cluster of
+    8 and of 16, ragged widths (w % 16 of 1 and 15, w < 16), bands whose
+    start puts both sections' first bytes at every value mod 16), kernel
+    6's outputs on random text-like quadrants at both quadrant shapes at
+    every rung of the band ladder, the verify frame's quadrant at 1080p and
+    4K, and B = 1, 3 and 8 quadrants cut from the rows of one buffer (kernel
+    6's batch; == the per-frame kernel); one launch per call, no memset
+    (profiler). Timed on the verify frame's gray band at 1080p and 4K and on
+    the unbanded keep bits at B = 8 beside its bound and the bytewise
+    design's times."""
     from smh_tpu_torch import testing
     from smh_tpu_torch.ocr.engine import OCR_BINARY_THRESHOLD
     from smh_tpu_torch.ops import kernels as K
@@ -1858,6 +1871,10 @@ def phase_ocr_band(dev: torch.device) -> dict:
           f"{b8['ms']:.4f} ms, device {us8:.2f} us per batch ({us8 / BATCH:.2f} per frame) beside its bound "
           f"{b8['bound_ms']:.5f} ms ({b8['bound_by']}); {calls} calls held against plain, every byte equal",
           flush=True)
+    print(f"ocr_band: device us, gray band {times[1080]['device_us']:.2f} / {times[2160]['device_us']:.2f}, unbanded "
+          f"B={BATCH} {us8:.2f}, beside the bytewise design's {BYTEWISE_US['ocr_band']} and the bounds "
+          f"{times[1080]['bound_ms'] * 1e3:.3f} / {times[2160]['bound_ms'] * 1e3:.3f}, B={BATCH} "
+          f"{b8['bound_ms'] * 1e3:.3f} us", flush=True)
     return {
         "name": "ocr_band", "route": "cuda", "source": "smh_tpu_torch/csrc/ocr_band.cu",
         "replaces": "smh_tpu/ops/pipeline.py:826", "max_abs_err": 0, **times[1080], "library_ms": None,

@@ -97,14 +97,14 @@ extern "C" int smh_probe_timeline_clear(void* stream) {{
 """
 
 
-def timeline_patches(anchor: str, stamps) -> list:
+def timeline_patches(anchor: str, stamps, who: str = "threadIdx.x == 0") -> list:
     """Patches that add the timeline to a source: its head after `anchor`
     (text that ends the source's includes), then for each (text, k, dep) of
-    `stamps` the stamp k of thread 0 inserted before `text`, once the u32
-    `dep` has arrived."""
+    `stamps` the stamp k of thread 0 (the thread for which `who` holds)
+    inserted before `text`, once the u32 `dep` has arrived."""
     head = _TIMELINE_HEAD.format(blocks=TIMELINE_BLOCKS, stamps=len(stamps))
     return [(anchor, anchor + head)] + [
-        (text, f"  if (threadIdx.x == 0) probe_stamp({k}, (unsigned)({dep}));  // probe\n" + text)
+        (text, f"  if ({who}) probe_stamp({k}, (unsigned)({dep}));  // probe\n" + text)
         for text, k, dep in stamps]
 
 
@@ -133,4 +133,24 @@ def timeline_summary(stamps, names) -> dict:
     out = {name: [float(d[:, k].median()), float(d[:, k].max())] for k, name in enumerate(names)}
     total = (stamps[:, -1] - stamps[:, 0]).double()
     out["total"] = [float(total.median()), float(total.max())]
+    return out
+
+
+def children_in_turns(trees: dict, child: str, tag: str, timeout: int = 600) -> dict:
+    """{tree name: [the JSON object each run printed]}: `python -c child`
+    run with each tree of `trees` ({name: directory}) as its working
+    directory, in turns (the first, the second, the second, the first), so
+    each times that tree's own code; a child prints its result on a line
+    that starts with `tag`."""
+    import subprocess
+    import sys
+
+    names = list(trees)
+    out = {n: [] for n in names}
+    for name in names + names[::-1]:
+        proc = subprocess.run([sys.executable, "-c", child], cwd=trees[name], capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the child in {trees[name]} failed:\n{proc.stderr[-3000:]}")
+        out[name].append(json.loads(next(l for l in proc.stdout.splitlines() if l.startswith(tag))[len(tag):]))
     return out

@@ -117,18 +117,23 @@ they compute each frame's plain result.
   Replaces the window crop of smh_tpu's _pack_outputs (XLA ops): the
   origin jnp.clip(bbox - margin), the dynamic_slice of lsd_bool, the meta
   and the window's pack_bits. From kernel 3's bits and kernel 7's bbox it
-  writes the meta and the window's bits, a thread an output byte shifted
-  from the two source bytes under it. Bound by the launch and two
-  dependent loads (the bbox, then the bits), not by its ~26 KB.
+  writes the meta and the window's bits, a thread an aligned 32-bit word
+  of an output row funnel-shifted from the two aligned source words under
+  it, in blocks of whole rows. Bound by the launch and two dependent loads
+  (the bbox, then the bits), not by its ~26 KB.
 * ocr_band -> csrc/ocr_band.cu (kernel 11)
   Replaces the OCR row band of smh_tpu's _pack_outputs (XLA ops): the keep
   mask's row bbox by two _first_true_counts, the band's start, the smeta
   and the dynamic_slices of the scales bits and of pack_bits(keep) or
   ocr_img; and the unbanded binary transport's pack_bits(keep). Banded, a
-  thread block cluster a frame finds the text rows (each block a strip,
-  joined through distributed shared memory) and copies the band; unbanded,
-  warps pack the keep mask by ballots. Bound by the launch and the
-  reduction over the whole keep plane before the copy.
+  thread block cluster of 16 blocks a frame finds the text rows (each
+  block a strip, its rows sent to every block by asynchronous distributed
+  shared memory stores that an mbarrier counts) and copies the band 16
+  bytes a thread; unbanded, a thread packs 16 pixels. Bound by the launch
+  and the reduction over the whole keep plane before the copy. The calls
+  of kernels 10 and 11 take their checks and arguments from a plan built
+  once per inputs' shapes and strides (window_crop_plan_for,
+  ocr_band_plan_for).
 """
 
 from __future__ import annotations
@@ -933,15 +938,50 @@ def window_crop_plain(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: i
     return opp._bytes(meta, lead), crop.reshape(*lead, -1)
 
 
-def window_crop(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, crop_w: int, margin: int) -> tuple:
-    """The crop_h x crop_w window of the dilated marker mask's bit plane
-    (kernel 3's lsd_bits, u8 [H, ceil(w/8)] or [B, H, ceil(w/8)], each frame
-    contiguous, the frames any stride(0) apart) at its bbox (lanes 0-3 of
-    kernel 7's i32 words [..., n]) less `margin`, clamped into the plane ->
-    (meta u8 [..., 24]: y0, y1, x0, x1, cy0, cx0 as i32; the window's bits
-    u8 [..., crop_h * ceil(crop_w/8)], MSB first, pad bits zero): the
-    hostpack's lsd_meta and lsd_crop. One launch for a batch (each frame its
-    own origin), no memset, no host sync."""
+class WindowPlan(NamedTuple):
+    """What kernel 10's call takes from its inputs' shapes and strides alone,
+    built once per key (window_crop_plan_for): the output's shape, its row
+    and window bytes, the row's pieces (meta, window, padding), and
+    smh_window_crop's arguments but the addresses (the bits' rows and frame
+    stride, the words' frame stride, the frames)."""
+
+    out_shape: tuple
+    row: int
+    n: int
+    pieces: tuple
+    h: int
+    stride: int
+    words_stride: int
+    bsz: int
+
+
+def window_crop_plan(bits_shape, words_strides, crop_h: int, crop_w: int, frame_stride: int) -> WindowPlan:
+    """Kernel 10's plan (WindowPlan) for a crop_h x crop_w window of bits of
+    `bits_shape` whose frames lie `frame_stride` bytes apart, and words of
+    `words_strides`; a pure function of them."""
+    lead = tuple(bits_shape[:-2])
+    n = crop_h * ((crop_w + 7) // 8)
+    row = -(-(WINDOW_META + n) // 4) * 4
+    return WindowPlan(out_shape=(*lead, row), row=row, n=n, pieces=(WINDOW_META, n, row - WINDOW_META - n),
+                      h=bits_shape[-2], stride=frame_stride,
+                      words_stride=words_strides[0] if lead else 0, bsz=lead[0] if lead else 1)
+
+
+_WINDOW_PLANS: dict = {}  # the inputs' (dtype, shape, strides, device), w, crop and margin -> WindowPlan
+
+
+def window_crop_plan_for(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, crop_w: int,
+                         margin: int) -> WindowPlan:
+    """The plan of these inputs: the one built for inputs of the same
+    dtypes, shapes, strides and devices and the same w, crop and margin,
+    else a new one after every check (a plan found was built from inputs
+    that passed them), or ValueError. Found with no lock (a dict read is
+    atomic)."""
+    key = (bits.dtype, bits.shape, bits.stride(), bits.device, words.dtype, words.shape, words.stride(),
+           words.device, w, crop_h, crop_w, margin)
+    plan = _WINDOW_PLANS.get(key)
+    if plan is not None:
+        return plan
     if bits.dtype != torch.uint8 or bits.dim() not in (2, 3) or bits.shape[-1] != (w + 7) // 8 or bits.numel() == 0:
         raise ValueError(f"expected u8 [H, {(w + 7) // 8}] or [B, H, {(w + 7) // 8}] bits, got "
                          f"{bits.dtype} {tuple(bits.shape)}")
@@ -955,24 +995,41 @@ def window_crop(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, cr
     device = bits.device
     if words.device != device:
         raise ValueError(f"bits on {device}, words on {words.device}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    stride = 0
+    if device.type == "cuda":
+        if words.stride(-1) != 1:
+            raise ValueError("the kernel reads words whose lanes are contiguous")
+        stride = _frame_stride((bits,))
+    plan = _WINDOW_PLANS[key] = window_crop_plan(bits.shape, words.stride(), crop_h, crop_w, stride)
+    return plan
+
+
+def window_crop(bits: torch.Tensor, words: torch.Tensor, w: int, crop_h: int, crop_w: int, margin: int) -> tuple:
+    """The crop_h x crop_w window of the dilated marker mask's bit plane
+    (kernel 3's lsd_bits, u8 [H, ceil(w/8)] or [B, H, ceil(w/8)], each frame
+    contiguous, the frames any stride(0) apart) at its bbox (lanes 0-3 of
+    kernel 7's i32 words [..., n]) less `margin`, clamped into the plane ->
+    (meta u8 [..., 24]: y0, y1, x0, x1, cy0, cx0 as i32; the window's bits
+    u8 [..., crop_h * ceil(crop_w/8)], MSB first, pad bits zero): the
+    hostpack's lsd_meta and lsd_crop. One launch for a batch (each frame its
+    own origin), no memset, no host sync. The checks and the call's
+    arguments come from a plan built once per key (window_crop_plan_for)."""
+    plan = window_crop_plan_for(bits, words, w, crop_h, crop_w, margin)
+    device = bits.device
     if device.type == "cpu":
         return window_crop_plain(bits, words, w, crop_h, crop_w, margin)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    if words.stride(-1) != 1:
-        raise ValueError("the kernel reads words whose lanes are contiguous")
-    stride = _frame_stride((bits,))
-    bsz = bits.shape[0] if bits.dim() == 3 else 1
-    n = crop_h * ((crop_w + 7) // 8)
-    row = -(-(WINDOW_META + n) // 4) * 4
-    out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
+    out = torch.empty(plan.out_shape, dtype=torch.uint8, device=device)
     lib = _build.load()
     with _on(device):
-        code = lib.smh_window_crop(bits.data_ptr(), stride, h, w, words.data_ptr(), words.stride(0) if lead else 0,
-                                   crop_h, crop_w, margin, bsz, out.data_ptr(), row, _raw_stream(device.index))
+        code = lib.smh_window_crop(bits.data_ptr(), plan.stride, plan.h, w, words.data_ptr(), plan.words_stride,
+                                   crop_h, crop_w, margin, plan.bsz, out.data_ptr(), plan.row,
+                                   _raw_stream(device.index))
     _build.check(code, "smh_window_crop")
     LAUNCHES["window_crop"] += 1
-    return out[..., :WINDOW_META], out[..., WINDOW_META : WINDOW_META + n]
+    meta, crop, _ = out.split_with_sizes(plan.pieces, -1)
+    return meta, crop
 
 
 # -- kernel 11: the OCR row band and the keep bits -----------------------------------
@@ -1012,19 +1069,64 @@ def _plane_layout(t: torch.Tensor, w: int, name: str) -> int:
     return t.stride(0) if t.dim() == 3 and t.shape[0] > 1 else 0
 
 
-def ocr_band(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tensor, inline: str,
-             band: int | None = None) -> tuple:
-    """The quadrant's inline scales sections, in the hostpack's order, from
-    kernel 6's outputs: the keep (text) plane u8 0/1 [h, w] or [B, h, w],
-    the scales bits u8 [..., h, ceil(w/8)] and ocr_img u8 [..., h, w] (rows
-    contiguous; the frames any stride apart). inline "binary" or "gray".
-    band None ("binary" only): (the scales bits, the packed keep mask u8
-    [..., h * ceil(w/8)]); band rows: (smeta u8 [..., 12]: oy0, oy1 and b0
-    as i32, the keep mask's first text row, one past its last, and the
-    band's start clamp(oy0, 0, h - band); rows b0 .. b0 + band of the scales
-    bits; the same rows of the packed keep mask ("binary") or of ocr_img
-    ("gray")), each u8 [..., n]. One launch for a batch, no memset, no host
-    sync."""
+class BandPlan(NamedTuple):
+    """What kernel 11's call takes from its inputs' shapes and strides alone,
+    built once per key (ocr_band_plan_for): the output's shape and row, the
+    sections' bytes (nb, nx; the unbanded keep mask's is nx), and
+    smh_ocr_band's arguments but the addresses (the text plane's frame
+    stride, the scales bits' and ocr_img's, h, w, band, binary, frames);
+    pieces: the banded row's (smeta, scales bits, keep bits or ocr_img,
+    padding)."""
+
+    lead: tuple
+    out_shape: tuple
+    row: int
+    nb: int
+    nx: int
+    pieces: tuple
+    stride: int
+    sbits_stride: int
+    ocr_stride: int
+    h: int
+    w: int
+    band: int
+    binary: int
+    bsz: int
+
+
+def ocr_band_plan(text_shape, inline: str, band: int | None, strides: tuple = (0, 0, 0)) -> BandPlan:
+    """Kernel 11's plan (BandPlan) for a text plane of `text_shape` and the
+    frame strides (bytes) of the text plane, the scales bits and ocr_img;
+    a pure function of them."""
+    lead, (h, w) = tuple(text_shape[:-2]), tuple(text_shape[-2:])
+    bpr = (w + 7) // 8
+    if band is None:
+        nb, nx = 0, h * bpr
+        row = nx
+    else:
+        nb, nx = band * bpr, band * (bpr if inline == "binary" else w)
+        row = -(-(BAND_META + nb + nx) // 4) * 4
+    pieces = (BAND_META, nb, nx, row - BAND_META - nb - nx) if band is not None else ()
+    return BandPlan(lead=lead, out_shape=(*lead, row), row=row, nb=nb, nx=nx, pieces=pieces, stride=strides[0],
+                    sbits_stride=strides[1], ocr_stride=strides[2], h=h, w=w, band=band or 0,
+                    binary=int(inline == "binary"), bsz=lead[0] if lead else 1)
+
+
+_BAND_PLANS: dict = {}  # the inputs' (dtype, shape, strides, device), inline and band -> BandPlan
+
+
+def ocr_band_plan_for(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tensor, inline: str,
+                      band: int | None) -> BandPlan:
+    """The plan of these inputs: the one built for inputs of the same
+    dtypes, shapes, strides and devices and the same inline and band, else
+    a new one after every check (a plan found was built from inputs that
+    passed them), or ValueError. Found with no lock (a dict read is
+    atomic)."""
+    key = (inline, band, text.dtype, text.shape, text.stride(), text.device, scales_bits.dtype, scales_bits.shape,
+           scales_bits.stride(), scales_bits.device, ocr_img.dtype, ocr_img.shape, ocr_img.stride(), ocr_img.device)
+    plan = _BAND_PLANS.get(key)
+    if plan is not None:
+        return plan
     if inline not in ("binary", "gray") or (band is None and inline != "binary"):
         raise ValueError(f"the kernel takes the binary transport or a band: {inline!r}, band {band}")
     if text.dtype != torch.uint8 or text.dim() not in (2, 3) or text.numel() == 0:
@@ -1037,28 +1139,46 @@ def ocr_band(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tenso
     if band is not None and not 0 < band <= h:
         raise ValueError(f"a band of {band} rows of a {h}-row quadrant")
     device = text.device
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    strides = (0, 0, 0)
+    if device.type == "cuda":
+        strides = (_frame_stride((text,)),
+                   *((0, 0) if band is None else (_plane_layout(scales_bits, bpr, "scales bits"),
+                                                  _plane_layout(ocr_img, w, "ocr_img"))))
+    plan = _BAND_PLANS[key] = ocr_band_plan(text.shape, inline, band, strides)
+    return plan
+
+
+def ocr_band(text: torch.Tensor, scales_bits: torch.Tensor, ocr_img: torch.Tensor, inline: str,
+             band: int | None = None) -> tuple:
+    """The quadrant's inline scales sections, in the hostpack's order, from
+    kernel 6's outputs: the keep (text) plane u8 0/1 [h, w] or [B, h, w],
+    the scales bits u8 [..., h, ceil(w/8)] and ocr_img u8 [..., h, w] (rows
+    contiguous; the frames any stride apart). inline "binary" or "gray".
+    band None ("binary" only): (the scales bits, the packed keep mask u8
+    [..., h * ceil(w/8)]); band rows: (smeta u8 [..., 12]: oy0, oy1 and b0
+    as i32, the keep mask's first text row, one past its last, and the
+    band's start clamp(oy0, 0, h - band); rows b0 .. b0 + band of the scales
+    bits; the same rows of the packed keep mask ("binary") or of ocr_img
+    ("gray")), each u8 [..., n]. One launch for a batch, no memset, no host
+    sync. The checks and the call's arguments come from a plan built once
+    per key (ocr_band_plan_for)."""
+    plan = ocr_band_plan_for(text, scales_bits, ocr_img, inline, band)
+    device = text.device
     if device.type == "cpu":
         return ocr_band_plain(text, scales_bits, ocr_img, inline, band)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    stride = _frame_stride((text,))
-    bsz = text.shape[0] if text.dim() == 3 else 1
+    out = torch.empty(plan.out_shape, dtype=torch.uint8, device=device)
     if band is None:
-        row = h * bpr
-        out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
-        args = (None, 0, None, 0)
+        planes = (None, 0, None, 0)
     else:
-        nb, nx = band * bpr, band * (bpr if inline == "binary" else w)
-        row = -(-(BAND_META + nb + nx) // 4) * 4
-        out = torch.empty((*lead, row), dtype=torch.uint8, device=device)
-        args = (scales_bits.data_ptr(), _plane_layout(scales_bits, bpr, "scales bits"),
-                ocr_img.data_ptr(), _plane_layout(ocr_img, w, "ocr_img"))
+        planes = (scales_bits.data_ptr(), plan.sbits_stride, ocr_img.data_ptr(), plan.ocr_stride)
     lib = _build.load()
     with _on(device):
-        code = lib.smh_ocr_band(text.data_ptr(), stride, *args, h, w, band or 0, int(inline == "binary"), bsz,
-                                out.data_ptr(), row, _raw_stream(device.index))
+        code = lib.smh_ocr_band(text.data_ptr(), plan.stride, *planes, plan.h, plan.w, plan.band, plan.binary,
+                                plan.bsz, out.data_ptr(), plan.row, _raw_stream(device.index))
     _build.check(code, "smh_ocr_band")
     LAUNCHES["ocr_band"] += 1
     if band is None:
-        return scales_bits.reshape(*lead, -1), out
-    return out[..., :BAND_META], out[..., BAND_META : BAND_META + nb], out[..., BAND_META + nb : BAND_META + nb + nx]
+        return scales_bits.reshape(*plan.lead, -1), out
+    return tuple(out.split_with_sizes(plan.pieces, -1)[:3])

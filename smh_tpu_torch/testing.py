@@ -498,7 +498,8 @@ def window_crop_cases(margin: int) -> dict:
     right, for windows at the bbox less `margin`: an empty mask (its origin
     clamped as JAX clamps y0 = H, x0 = W), the bbox at each border, the
     origin's column at every value mod 8, ragged crop widths, the last byte
-    of a ragged row under the window, one full dimension (crop_w == W with
+    of a ragged row under the window, the window at the right border with
+    its origin at every value mod 8, one full dimension (crop_w == W with
     crop_h < H, and crop_h == H with crop_w < W), the whole plane, 1-row and
     1-column planes, and dense random planes."""
     h, w = 97, 203  # 203 = 25 bytes and 3 bits a row
@@ -522,6 +523,11 @@ def window_crop_cases(margin: int) -> dict:
     for cw in (53, 57, 64, 1):
         cases[f"ragged_crop_w_{cw}"] = (np.packbits(blob, axis=1), w, 41, cw)
     cases["last_byte"] = (one([(60, w - 2)]), w, 41, 61)  # cx0 = W - 61: its last byte is the row's
+    # The window at the right border, cx0 = W - crop_w at every value mod 8:
+    # the row's last output bytes, and the 16-byte chunk that holds them,
+    # take source bytes up to the row's end and none past it.
+    for cw in (29, 30, 31, 33, 36, 40, 130, 195):
+        cases[f"row_end_{cw}"] = (one([(50, w - 1), (60, w - 2), (70, w - 3)]), w, 41, cw)
     cases["full_width"] = (np.packbits(blob, axis=1), w, 41, w)
     cases["full_height"] = (np.packbits(blob, axis=1), w, h, 61)
     cases["full_plane"] = (np.packbits(blob, axis=1), w, h, w)
@@ -538,9 +544,11 @@ def ocr_band_cases() -> dict:
     must get right (its keep mask is ocr_img < OCR_BINARY_THRESHOLD): a
     textless quadrant, text on the first or the last row, text near the
     bottom (the band clamped to the last rows), band == h, a single text
-    pixel, text on the rows around the seams of the cluster's row strips
-    (ceil(h / 8) rows a block), ragged widths (w % 8 and w % 32 != 0), 1-row
-    and narrow quadrants, and dense text."""
+    pixel, text on the rows around the seams of the row strips of a cluster
+    of 8 or of 16 blocks (ceil(h / 8) or ceil(h / 16) rows a block), ragged
+    widths (w % 8, w % 16 and w % 32 != 0, w % 16 of 1 and 15, w < 16), 1-row
+    and narrow quadrants, dense text, and bands whose start puts both
+    sections' first bytes at every value mod 16."""
     from .ocr.engine import OCR_BINARY_THRESHOLD
 
     rng = np.random.default_rng(11)
@@ -564,9 +572,17 @@ def ocr_band_cases() -> dict:
         "narrow": (text_at([3, 9], (17, 13), slice(0, 13)), 5),
         "dense": (rng.integers(0, 256, (h, w), dtype=np.uint8), 33),
     }
-    per = -(-h // 8)  # rows a block of the cluster
+    per = -(-h // 8)  # rows a block of a cluster of 8
     for k in (1, 4, 7):
         cases[f"strip_seam_{k}"] = (text_at([k * per - 1, k * per]), 24)
-    for cw in (1, 31, 33, 64, 493):
+    per = -(-h // 16)  # rows a block of a cluster of 16
+    for k in (1, 7, 13):
+        cases[f"strip16_seam_{k}"] = (text_at([k * per - 1, k * per]), 24)
+    for cw in (1, 5, 9, 15, 17, 31, 33, 47, 49, 64, 493):
         cases[f"ragged_{cw}"] = (text_at([5, 20], (29, cw), slice(0, cw)), 12)
+    # The band's start at every value mod 16 of both sections: w = 193 and
+    # its 25-byte rows are odd, so b0 = k puts b0 w and b0 bpr at k and 9 k
+    # mod 16.
+    for k in range(16):
+        cases[f"b0_mod16_{k}"] = (text_at([k, k + 3], (40, 193), slice(3, 190)), 12)
     return cases

@@ -124,7 +124,7 @@ DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/
 PORT_ONLY = {
     "__init__.py", "_build.py", "_probe.py", "probe_classify.py", "probe_quiet_walk.py", "probe_ray_march.py",
     "probe_scales_read.py", "probe_brq_preprocess.py", "probe_mask_words.py", "probe_pass.py", "probe_hostpack.py",
-    "probe_delta_apply.py",
+    "probe_delta_apply.py", "probe_window_crop.py", "probe_ocr_band.py",
     "ops/__init__.py", "ops/hsv.py", "ops/kernels.py", "ops/lsd.py",
     "ops/pipeline.py", "ops/scales_device.py", "ops/warmup.py", "vision/__init__.py", "vision/batch.py",
     "vision/cuda_backend.py", "parallel/__init__.py", "parallel/dryrun.py", "parallel/spmd.py",

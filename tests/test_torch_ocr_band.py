@@ -9,8 +9,9 @@ near the bottom, band == h, a single text pixel, text around the seams of
 the cluster's row strips, ragged widths -- on kernel 6's own outputs (the
 scales bits and ocr_img as views of its scalespack), and on batches cut
 from the rows of one buffer. All comparisons are exact. Also: the wrapper
-takes the twin on a CPU tensor, refuses what the kernel does not take and
-launches nothing on the CPU. (The CUDA kernel itself is held against the
+takes the twin on a CPU tensor, refuses what the kernel does not take (with
+a plan cached too), builds its plan once per key and launches nothing on
+the CPU; the probe's patches apply to the source. (The CUDA kernel itself is held against the
 twin on the card by chip_smoke.py.)"""
 
 import pathlib
@@ -24,6 +25,7 @@ import torch
 
 from smh_tpu.ops import pipeline as opp
 from smh_tpu_torch import _build, testing
+from smh_tpu_torch import probe_ocr_band as probe
 from smh_tpu_torch.ocr.engine import OCR_BINARY_THRESHOLD
 from smh_tpu_torch.ops import kernels
 
@@ -180,3 +182,105 @@ def test_the_entry_point_and_layout_match_the_cuda_source():
     assert (CSRC / "ocr_band.cu") in _build.sources() and "smh_ocr_band" in _build._SIGNATURES
     assert re.search(r'extern "C" int smh_ocr_band\(', src)
     assert kernels.BAND_PASS == ("ocr_band",) and "ocr_band" in kernels.LAUNCHES
+
+
+def test_the_band_starts_reach_every_value_mod_16():
+    """The b0_mod16 cases start the band at rows whose first byte of ocr_img
+    (b0 w) and of the scales bits (b0 ceil(w / 8)) take every value mod 16."""
+    starts = set()
+    for name, (ocr, band) in CASES.items():
+        if name.startswith("b0_mod16_"):
+            text, sbits, _ = _inputs(ocr)
+            b0 = int(_check(text, sbits, ocr, "gray", band, _want(ocr, sbits, "gray", band))[0].view(np.int32)[2])
+            assert b0 == int(name.rsplit("_", 1)[1])
+            w = ocr.shape[1]
+            starts.add((b0 * w % 16, b0 * ((w + 7) // 8) % 16))
+    assert {a for a, _ in starts} == set(range(16)) and {b for _, b in starts} == set(range(16))
+
+
+def _band_inputs():
+    ocr, band = CASES["dense"]
+    text, sbits, _ = _inputs(ocr)
+    return torch.from_numpy(text), torch.from_numpy(sbits), torch.from_numpy(ocr), band
+
+
+def test_a_second_call_with_the_same_key_reuses_the_plan():
+    text, sbits, ocr, band = _band_inputs()
+    plan = kernels.ocr_band_plan_for(text, sbits, ocr, "gray", band)
+    n = len(kernels._BAND_PLANS)
+    assert kernels.ocr_band_plan_for(text.clone(), sbits.clone(), ocr.clone(), "gray", band) is plan
+    kernels.ocr_band(text, sbits, ocr, "gray", band)
+    assert len(kernels._BAND_PLANS) == n
+    h, w = text.shape
+    assert (plan.nb, plan.nx, plan.band, plan.binary) == (band * ((w + 7) // 8), band * w, band, 0)
+    assert plan.row % 4 == 0 and plan.row >= kernels.BAND_META + plan.nb + plan.nx
+
+
+@pytest.mark.parametrize("change", ["shape", "stride", "band", "inline", "unbanded", "batch"])
+def test_a_new_shape_stride_band_or_inline_builds_a_new_plan(change):
+    text, sbits, ocr, band = _band_inputs()
+    plan = kernels.ocr_band_plan_for(text, sbits, ocr, "gray", band)
+    args = [text, sbits, ocr, "gray", band]
+    if change == "shape":
+        args[:3] = text[:-1], sbits[:-1], ocr[:-1]
+    elif change == "stride":  # the same frames, a frame stride of 4 more bytes
+        batch = [t.expand(2, -1, -1).contiguous() for t in (text, sbits, ocr)]
+        plan = kernels.ocr_band_plan_for(*batch, "gray", band)
+        for i, t in enumerate(batch):
+            rows = torch.zeros((2, t[0].numel() + 4), dtype=torch.uint8)
+            rows[:, : t[0].numel()] = t.reshape(2, -1)
+            args[i] = rows[:, : t[0].numel()].view(t.shape)
+    elif change == "band":
+        args[4] = band - 1
+    elif change == "inline":
+        args[3] = "binary"
+    elif change == "unbanded":
+        args[3:] = "binary", None
+    else:
+        args[:3] = text[None], sbits[None], ocr[None]
+    new = kernels.ocr_band_plan_for(*args)
+    assert new is not plan and kernels.ocr_band_plan_for(*args) is new
+    got, want = kernels.ocr_band(*args), kernels.ocr_band_plain(*args)
+    assert len(got) == len(want) and all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_a_wrong_tensor_raises_with_a_plan_cached():
+    text, sbits, ocr, band = _band_inputs()
+    kernels.ocr_band(text, sbits, ocr, "gray", band)
+    bad = [
+        (text.to(torch.int32), sbits, ocr, "gray", band),
+        (text, sbits[:, :3], ocr, "gray", band),
+        (text, sbits, ocr[:-1], "gray", band),
+        (text, sbits, ocr, "gray", text.shape[0] + 1),
+        (text, sbits, ocr, "gray", None),
+        (text, sbits.to("meta"), ocr, "gray", band),
+        (text.to("meta"), sbits.to("meta"), ocr.to("meta"), "gray", band),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError):
+            kernels.ocr_band(*args)
+
+
+def test_the_plan_of_a_strided_batch_on_the_card():
+    """ocr_band_plan, as ocr_band_plan_for builds it for CUDA inputs: the
+    frame strides given, the sections' bytes, the output row padded to 4
+    bytes (banded) or the keep mask's bytes (unbanded)."""
+    plan = kernels.ocr_band_plan((1, 411, 493), "gray", 51, (411 * 493, 0, 0))
+    assert (plan.out_shape, plan.nb, plan.nx, plan.band, plan.binary, plan.bsz) == ((1, 28320), 51 * 62, 51 * 493,
+                                                                                   51, 0, 1)
+    assert plan.pieces == (12, 51 * 62, 51 * 493, 28320 - 12 - 51 * 62 - 51 * 493)
+    plan = kernels.ocr_band_plan((8, 411, 493), "binary", None, (202660, 0, 0))
+    assert (plan.out_shape, plan.row, plan.nx, plan.band, plan.binary, plan.stride) == ((8, 411 * 62), 411 * 62,
+                                                                                         411 * 62, 0, 1, 202660)
+
+
+@pytest.mark.parametrize("build", sorted(probe.variants_of((CSRC / "ocr_band.cu").read_text())))
+def test_the_probe_patches_apply(build):
+    """Each build of probe_ocr_band applies to the kernel source as it is
+    (its design is this one), and changes it (but the unpatched build)."""
+    src = (CSRC / "ocr_band.cu").read_text()
+    assert probe.design_of(src) == next(iter(probe.DESIGNS))
+    text, keeps = probe.variants_of(src)[build]
+    assert (text == src) == (build == "as built")
+    assert keeps == (not build.startswith(("ablation", "chain")))
+    compile(probe.CALLS_CHILD, "calls", "exec")

@@ -7,8 +7,9 @@ the origin's column at every value mod 8, ragged crop widths, one full
 dimension, 1-row and 1-column planes -- on random planes at the 1080p map,
 and on batches cut from the rows of one buffer with an origin per frame.
 All comparisons are exact. Also: the wrapper takes the twin on a CPU
-tensor, refuses what the kernel does not take and launches nothing on the
-CPU. (The CUDA kernel itself is held against the twin on the card by
+tensor, refuses what the kernel does not take (with a plan cached too),
+builds its plan once per key and launches nothing on the CPU; the probe's
+patches apply to the source. (The CUDA kernel itself is held against the twin on the card by
 chip_smoke.py.)"""
 
 import pathlib
@@ -22,6 +23,7 @@ import torch
 
 from smh_tpu.ops import pipeline as opp
 from smh_tpu_torch import _build, testing
+from smh_tpu_torch import probe_window_crop as probe
 from smh_tpu_torch.ops import kernels
 from smh_tpu_torch.ops import pipeline as tpp
 
@@ -192,3 +194,92 @@ def test_the_fused_pass_takes_the_kernel_on_a_window_route_only():
     finally:
         kernels.window_crop = real
     assert seen == [(g.map_h // 2, g.map_w // 2)]
+
+
+def test_the_right_border_cases_reach_every_origin_mod_8():
+    """The row_end cases put the window at the plane's right border (cx0 =
+    W - crop_w) at every value of cx0 mod 8."""
+    mods = set()
+    for name, (bits, w, crop_h, crop_w) in CASES.items():
+        if name.startswith("row_end_"):
+            cx0 = int(_crop(bits, w, crop_h, crop_w)[0].view(np.int32)[5])
+            assert cx0 == w - crop_w
+            mods.add(cx0 % 8)
+    assert mods == set(range(8))
+
+
+def _key_inputs():
+    bits, w, crop_h, crop_w = CASES["random_0.01"]
+    return torch.from_numpy(bits), torch.from_numpy(_words(bits, w)), w, crop_h, crop_w
+
+
+def test_a_second_call_with_the_same_key_reuses_the_plan():
+    bits, words, w, crop_h, crop_w = _key_inputs()
+    plan = kernels.window_crop_plan_for(bits, words, w, crop_h, crop_w, MARGIN)
+    n = len(kernels._WINDOW_PLANS)
+    assert kernels.window_crop_plan_for(bits.clone(), words.clone(), w, crop_h, crop_w, MARGIN) is plan
+    _crop(bits.numpy(), w, crop_h, crop_w, words.numpy())
+    assert len(kernels._WINDOW_PLANS) == n
+    assert plan.n == crop_h * ((crop_w + 7) // 8) and plan.out_shape == (plan.row,) and plan.row % 4 == 0
+
+
+@pytest.mark.parametrize("change", ["shape", "stride", "crop_h", "crop_w", "margin", "batch"])
+def test_a_new_shape_stride_or_crop_builds_a_new_plan(change):
+    bits, words, w, crop_h, crop_w = _key_inputs()
+    plan = kernels.window_crop_plan_for(bits, words, w, crop_h, crop_w, MARGIN)
+    args = [bits, words, w, crop_h, crop_w, MARGIN]
+    if change == "shape":
+        args[0] = bits[:-1]
+    elif change == "stride":  # the same frames, a frame stride of 4 more bytes
+        rows = torch.zeros((2, bits.numel() + 4), dtype=torch.uint8)
+        rows[:, : bits.numel()] = bits.reshape(-1)
+        args[0] = rows[:, : bits.numel()].view(2, *bits.shape)
+        args[1] = words.expand(2, -1).contiguous()
+        plan = kernels.window_crop_plan_for(bits.expand(2, -1, -1).contiguous(), args[1], w, crop_h, crop_w, MARGIN)
+    elif change == "crop_h":
+        args[3] = crop_h - 1
+    elif change == "crop_w":
+        args[4] = crop_w - 1
+    elif change == "margin":
+        args[5] = MARGIN + 1
+    else:
+        args[0], args[1] = bits[None], words[None]
+    new = kernels.window_crop_plan_for(*args)
+    assert new is not plan and kernels.window_crop_plan_for(*args) is new
+    meta, crop = kernels.window_crop(*args)
+    want = kernels.window_crop_plain(*args)
+    assert torch.equal(meta, want[0]) and torch.equal(crop, want[1])
+
+
+def test_a_wrong_tensor_raises_with_a_plan_cached():
+    bits, words, w, crop_h, crop_w = _key_inputs()
+    kernels.window_crop(bits, words, w, crop_h, crop_w, MARGIN)
+    for b, wd in ((bits.to(torch.int32), words), (bits, words.to(torch.int64)), (bits, words[:3]),
+                  (bits[None].expand(2, -1, -1), words), (bits.to("meta"), words.to("meta"))):
+        with pytest.raises(ValueError):
+            kernels.window_crop(b, wd, w, crop_h, crop_w, MARGIN)
+    with pytest.raises(ValueError):
+        kernels.window_crop(bits, words, w, crop_h, w + 1, MARGIN)
+
+
+def test_the_plan_of_a_strided_batch_on_the_card():
+    """window_crop_plan, as window_crop_plan_for builds it for CUDA inputs:
+    the frame stride given, the words' frame stride, the output row padded
+    to 4 bytes."""
+    plan = kernels.window_crop_plan((8, 822, 124), (2055, 1), 411, 493, 822 * 124 + 5)
+    assert plan == kernels.WindowPlan(out_shape=(8, 25508), row=25508, n=25482, pieces=(24, 25482, 2), h=822,
+                                      stride=822 * 124 + 5, words_stride=2055, bsz=8)
+    one = kernels.window_crop_plan((822, 124), (1,), 411, 493, 822 * 124)
+    assert one.out_shape == (25508,) and one.words_stride == 0 and one.bsz == 1
+
+
+@pytest.mark.parametrize("build", sorted(probe.variants_of((CSRC / "window_crop.cu").read_text())))
+def test_the_probe_patches_apply(build):
+    """Each build of probe_window_crop applies to the kernel source as it is
+    (its design is this one), and changes it (but the unpatched build)."""
+    src = (CSRC / "window_crop.cu").read_text()
+    assert probe.design_of(src) == next(iter(probe.DESIGNS))
+    text, keeps = probe.variants_of(src)[build]
+    assert (text == src) == (build == "as built")
+    assert keeps == (not build.startswith("ablation"))
+    compile(probe.CALLS_CHILD, "calls", "exec")
