@@ -26,6 +26,8 @@ import threading
 import time
 from typing import Optional
 
+from .utils.timeshares import WORK, add, span
+
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "build"
@@ -178,16 +180,18 @@ def build() -> pathlib.Path:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
     os.replace(tmp, out)  # atomic: a concurrent loader never sees a torn file
     build_seconds = time.perf_counter() - t0
+    add("setup.nvcc", WORK, t0, t0 + build_seconds)
     return out
 
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (and found with no lock
-    after it)."""
+    after it); the first call is the span `setup.kernels`, its build (on a
+    cache miss) `setup.nvcc`."""
     global _lib
     if _lib is not None:
         return _lib
-    with _lock:
+    with span("setup.kernels"), _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             for name, argtypes in _SIGNATURES.items():

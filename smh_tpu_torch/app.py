@@ -627,6 +627,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--heightmap", help="load a .smhhm heightmap at startup")
     ap.add_argument("--fit-to-minimap", action="store_true",
                     help="align the heightmap by fitting it to the detected minimap bounds")
+    ap.add_argument("--trace-out", metavar="PATH",
+                    help="at exit, write the host half's spans (capture, loop, submit, fetch, host "
+                         "stages) as Chrome trace-event JSON, which Perfetto opens; with --worker "
+                         "the pipeline's spans stay in the worker process")
     return ap
 
 
@@ -719,6 +723,10 @@ def main(argv=None) -> int:
     log.info("running on %s (Ctrl+C stops)", args.device)
     app.wait()
     app.stop()
+    if args.trace_out:
+        from .utils.timeshares import write_chrome_trace
+
+        log.info("wrote %d spans to %s", write_chrome_trace(args.trace_out), args.trace_out)
     return 0
 
 

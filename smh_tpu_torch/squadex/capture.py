@@ -19,17 +19,20 @@ import dataclasses
 import itertools
 import pathlib
 import threading
+import time
 from typing import Iterator, Optional, Protocol
 
 import numpy as np
 
 from .. import consts as C
+from ..utils.timeshares import QUEUE, add, new_frame, span
 
 
 @dataclasses.dataclass
 class Frame:
     image: np.ndarray  # BGRA u8 [H, W, 4]
     dpi: Optional[int] = None
+    seq: Optional[int] = dataclasses.field(default=None, compare=False)  # the id the loop gave it at its take
 
 
 class FrameSource(Protocol):
@@ -335,6 +338,7 @@ class CaptureThread:
         self._interval = 1.0 / hz
         self._cond = threading.Condition()
         self._slot: Optional[Frame] = None
+        self._published = 0.0  # perf_counter time the slot's frame was published
         self._consumed = threading.Event()
         self._consumed.set()
         self._shutdown = threading.Event()
@@ -347,11 +351,17 @@ class CaptureThread:
 
     def fresh_frame(self) -> Optional[Frame]:
         """Take the mailbox frame if present; unparks the capture thread
-        either way (capture.rs:15-22 unparks even when the slot is empty)."""
+        either way (capture.rs:15-22 unparks even when the slot is empty).
+        A frame taken gets its id and a `capture.mailbox` record of its
+        time in the slot."""
         with self._cond:
             frame = self._slot
             self._slot = None
+            taken, published = time.perf_counter(), self._published
         self._consumed.set()
+        if frame is not None:
+            frame.seq = new_frame()
+            add("capture.mailbox", QUEUE, published, taken, frame.seq)
         return frame
 
     def resend(self) -> None:
@@ -405,11 +415,10 @@ class CaptureThread:
 
     def _run(self) -> None:
         while not self._shutdown.is_set():
-            frame = self._source.grab()
-            if frame is None:
-                self._shutdown.wait(self._interval)
-                continue
-            if self._frames_equal(frame.image, self._last_image):
+            with span("capture.grab"):
+                frame = self._source.grab()
+                fresh = frame is not None and not self._frames_equal(frame.image, self._last_image)
+            if not fresh:
                 self._shutdown.wait(self._interval)
                 continue
             self._last_image = frame.image
@@ -420,6 +429,7 @@ class CaptureThread:
             self._consumed.clear()
             with self._cond:
                 self._slot = frame
+                self._published = time.perf_counter()
             # Park until the vision loop consumes the frame (capture.rs:83).
             self._consumed.wait(timeout=1.0)
 

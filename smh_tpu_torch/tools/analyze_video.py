@@ -7,10 +7,12 @@ ratio. The throughput-mode answer to the reference's live-only design.
 
 Usage:
   python -m smh_tpu_torch.tools.analyze_video clip.mp4 [--batch 8] [--step 3]
-      [--limit N] [--ocr auto|none] [--device cuda|cuda:N|cpu]
+      [--limit N] [--ocr auto|none] [--device cuda|cuda:N|cpu] [--trace-out PATH]
 
 Decoding needs OpenCV (the cv2 module): without it the tool exits with
 status 2 and says so. `analyze` takes any iterator of BGRA frames.
+--trace-out writes the run's spans (the batch's submit, pack, diff, queue
+waits, fetch wait and host stages) as Chrome trace-event JSON at the end.
 """
 
 from __future__ import annotations
@@ -94,6 +96,7 @@ def main(argv=None) -> int:
     ap.add_argument("--limit", type=int, default=0, help="stop after N analyzed frames")
     ap.add_argument("--ocr", choices=["auto", "none"], default="auto")
     ap.add_argument("--device", default="cuda", help='"cuda", "cuda:N" or "cpu" (the plain versions)')
+    ap.add_argument("--trace-out", metavar="PATH", help="write the run's spans as Chrome trace-event JSON")
     args = ap.parse_args(argv)
 
     from .. import resolve_device
@@ -118,6 +121,10 @@ def main(argv=None) -> int:
         return 1
     dt = time.time() - t0
     print(f"analyzed {n} frames in {dt:.1f}s ({n/max(dt,1e-9):.1f} fps)", file=sys.stderr)
+    if args.trace_out:
+        from ..utils.timeshares import write_chrome_trace
+
+        print(f"wrote {write_chrome_trace(args.trace_out)} spans to {args.trace_out}", file=sys.stderr)
     return 0
 
 

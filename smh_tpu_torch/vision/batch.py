@@ -38,7 +38,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -50,6 +49,7 @@ from .. import resolve_device
 from ..geometry import Line, Rect
 from ..ops import pipeline as ops_pipeline
 from ..ops import scales_device as ops_scales_device
+from ..utils.timeshares import WAIT, new_frame, span
 from . import cuda_backend as cb
 from . import lsd as vlsd
 from . import mpx_ratio as mpx
@@ -149,12 +149,12 @@ class BatchPipeline:
         self._fetch_lock = threading.Lock()
         self._tail_event: Optional[torch.cuda.Event] = None  # recorded behind the last submit
         # t_* counters: cumulative ms per stage (pack/diff host halves, the
-        # outstanding-batch gate's wait, the dispatch call, the hostpack
-        # fetch wait, the per-frame host stages).
+        # outstanding-batch gate's wait, the per-frame host stages), the
+        # same timings as the spans batch.pack, batch.diff, batch.chain_wait
+        # and batch.host; d2h_bytes: every device -> host copy.
         self.stats = {
-            "delta_batches": 0, "full_batches": 0, "h2d_bytes": 0,
-            "t_pack_ms": 0.0, "t_diff_ms": 0.0, "t_poke_ms": 0.0,
-            "t_dispatch_ms": 0.0, "t_fetch_ms": 0.0, "t_host_ms": 0.0,
+            "delta_batches": 0, "full_batches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+            "t_pack_ms": 0.0, "t_diff_ms": 0.0, "t_poke_ms": 0.0, "t_host_ms": 0.0,
         }
 
     def _padded(self) -> tuple[int, int]:
@@ -409,12 +409,13 @@ class BatchPipeline:
                     # Blocking put with a stop check: when the consumer
                     # abandoned the generator it drains the queue in its
                     # finally block, so this always makes progress.
-                    while True:
-                        try:
-                            jobs.put(job, timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
+                    with span("batch.queue_put", WAIT, frame=job["frame"]):
+                        while True:
+                            try:
+                                jobs.put(job, timeout=0.2)
+                                break
+                            except queue.Full:
+                                continue
             except BaseException as e:  # propagate into the consumer
                 jobs.put(("__stream_err__", e))
             else:
@@ -433,7 +434,8 @@ class BatchPipeline:
         t.start()
         try:
             while True:
-                j = jobs.get()
+                with span("batch.queue_get", WAIT):
+                    j = jobs.get()
                 if j is done:
                     break
                 if isinstance(j, tuple) and j and j[0] == "__stream_err__":
@@ -482,93 +484,96 @@ class BatchPipeline:
             and self._mirror.size == padded
             and self.mesh is None
         )
+        fid = new_frame()
         try:
-            return self._submit(frames, n, delta_ok)
+            with span("batch.submit", frame=fid):
+                job = self._submit(frames, n, delta_ok)
         except BaseException:
             self._mirror = self._resident = None
             raise
+        job["frame"] = fid
+        return job
 
     def _submit(self, frames: list[np.ndarray], n: int, delta_ok: bool) -> dict:
         g = self.geom
-        t0 = time.perf_counter()
         rois = None
         upd = None
         rolled = False
         fused = self._fused_ok(frames)
-        if fused and delta_ok:
-            # Rolling in-place pack+diff+gather: no batch buffer write for
-            # unchanged windows, no mirror copy; t_pack_ms carries the sweep.
-            upd = self._roll_delta(frames)
-            rolled = upd is not None
+        with span("batch.pack", cpu=True) as pack:
+            if fused and delta_ok:
+                # Rolling in-place pack+diff+gather: no batch buffer write for
+                # unchanged windows, no mirror copy; t_pack_ms carries the sweep.
+                upd = self._roll_delta(frames)
+                rolled = upd is not None
+                if not rolled:
+                    delta_ok = False  # ladder overflow mid-roll: reseed full
             if not rolled:
-                delta_ok = False  # ladder overflow mid-roll: reseed full
-        if not rolled:
-            rois = self._pack_rois_native(frames) if fused else self._pack_rois(frames)
-        t1 = time.perf_counter()
-        self.stats["t_pack_ms"] += (t1 - t0) * 1000.0
+                rois = self._pack_rois_native(frames) if fused else self._pack_rois(frames)
+        self.stats["t_pack_ms"] += pack.seconds * 1000.0
 
-        inline = self._scales_inline()
-        with_ocr = self.ocr_engine is not None
-        if inline == "device":
-            for dev in self.devices:
-                if dev not in self._templates:
-                    self._templates[dev] = ops_scales_device.templates_to_device(
-                        ops_scales_device.device_templates(), dev
-                    )
-        kw = dict(
-            map_h=g.map_h,
-            map_w=g.map_w,
-            btn_h=g.btn_h,
-            btn_w=g.btn_w,
-            grayscale=True,
-            with_ocr=with_ocr,
-            crop_h=self.crop_h,
-            crop_w=self.crop_w,
-            scales_inline=inline,
-            sparse_budget=self.sparse_budget,
-        )
-        if not rolled:
-            upd = self._delta_updates(rois, n) if delta_ok else None
-        t2 = time.perf_counter()
-        self.stats["t_diff_ms"] += (t2 - t1) * 1000.0
+        with span("batch.diff", cpu=True) as diff:
+            inline = self._scales_inline()
+            with_ocr = self.ocr_engine is not None
+            if inline == "device":
+                for dev in self.devices:
+                    if dev not in self._templates:
+                        self._templates[dev] = ops_scales_device.templates_to_device(
+                            ops_scales_device.device_templates(), dev
+                        )
+            kw = dict(
+                map_h=g.map_h,
+                map_w=g.map_w,
+                btn_h=g.btn_h,
+                btn_w=g.btn_w,
+                grayscale=True,
+                with_ocr=with_ocr,
+                crop_h=self.crop_h,
+                crop_w=self.crop_w,
+                scales_inline=inline,
+                sparse_budget=self.sparse_budget,
+            )
+            if not rolled:
+                upd = self._delta_updates(rois, n) if delta_ok else None
+        self.stats["t_diff_ms"] += diff.seconds * 1000.0
         if upd is not None:
-            buf, bucket = upd
             # Delta chains must not stack unboundedly many batches against
             # resident buffers the device has not produced yet: with two
             # submitted batches unfetched, wait for the last one's event.
-            if self._seq - self._fetched_seq >= 2 and self._tail_event is not None:
-                self._tail_event.synchronize()
-            t3 = time.perf_counter()
-            self.stats["t_poke_ms"] += (t3 - t2) * 1000.0
-            out = ops_pipeline.analyze_batch_delta_flat(
-                self._resident, self._to_device(buf, self.device), bucket=bucket, chunk=cb._DELTA_SUB,
-                templates=self._templates.get(self.device), **kw
-            )
-            shards = [out]
-            self.stats["t_dispatch_ms"] += (time.perf_counter() - t3) * 1000.0
+            with span("batch.chain_wait", WAIT) as wait:
+                if self._seq - self._fetched_seq >= 2 and self._tail_event is not None:
+                    self._tail_event.synchronize()
+            self.stats["t_poke_ms"] += wait.seconds * 1000.0
+        with span("batch.dispatch"):
+            if upd is not None:
+                buf, bucket = upd
+                shards = [ops_pipeline.analyze_batch_delta_flat(
+                    self._resident, self._to_device(buf, self.device), bucket=bucket, chunk=cb._DELTA_SUB,
+                    templates=self._templates.get(self.device), **kw
+                )]
+            else:
+                # A full upload: one batched pass per dp device over its slice
+                # of the rows (the one device's whole batch without a mesh).
+                per = self.batch // len(self.devices)
+                shards = [
+                    ops_pipeline.analyze_batch_packed_flat(
+                        self._to_device(rois[k * per : (k + 1) * per], dev),
+                        resident_row=n - 1 if self.mesh is None else None,
+                        templates=self._templates.get(dev), **kw,
+                    )
+                    for k, dev in enumerate(self.devices)
+                ]
+            if self.mesh is None:
+                self._resident = shards[0].pop("resident")
+            fetch = self._fetch(shards)
+        if upd is not None:
             self.stats["delta_batches"] += 1
-            self.stats["h2d_bytes"] += buf.size
+            self.stats["h2d_bytes"] += upd[0].size
             if rois is not None:
                 self._rois_buf = rois  # never left the host: recycle next batch
         else:
-            # A full upload: one batched pass per dp device over its slice of
-            # the rows (the one device's whole batch without a mesh).
-            t3 = time.perf_counter()
-            per = self.batch // len(self.devices)
-            shards = [
-                ops_pipeline.analyze_batch_packed_flat(
-                    self._to_device(rois[k * per : (k + 1) * per], dev),
-                    resident_row=n - 1 if self.mesh is None else None,
-                    templates=self._templates.get(dev), **kw,
-                )
-                for k, dev in enumerate(self.devices)
-            ]
-            self.stats["t_dispatch_ms"] += (time.perf_counter() - t3) * 1000.0
             self.stats["full_batches"] += 1
             self.stats["h2d_bytes"] += rois.size
-        if self.mesh is None:
-            self._resident = shards[0].pop("resident")
-        fetch = self._fetch(shards)
         # Copy: a row view would keep the whole packed batch alive in host
         # RAM until the next submit replaces it. The rolled path's mirror
         # IS the chain tail already (rolled in place).
@@ -586,6 +591,7 @@ class BatchPipeline:
         land while the next batch packs and diffs, and collect() waits on
         this batch's events only. -> (host [B, bytes], events)."""
         packs = [o["hostpack"] for o in shards]
+        self._count_d2h(sum(p.nbytes for p in packs))
         if self.device.type != "cuda":
             return (packs[0] if len(packs) == 1 else torch.cat(packs)), []
         host = torch.empty((self.batch, packs[0].shape[1]), dtype=torch.uint8, pin_memory=True)
@@ -599,6 +605,10 @@ class BatchPipeline:
         self._tail_event = events[-1]
         return host, events
 
+    def _count_d2h(self, nbytes: int) -> None:
+        with self._fetch_lock:  # the submit, collect and host-stage threads all copy
+            self.stats["d2h_bytes"] += nbytes
+
     def _frame_out(self, job: dict, name: str, frames: list) -> np.ndarray:
         """Output `name` of the given frames, fetched from the devices that
         hold them (one fetch per device), in the order asked."""
@@ -609,24 +619,32 @@ class BatchPipeline:
             mine = [i for i in frames if i // per == k]
             if mine:
                 rows = out[name][[i - k * per for i in mine]].cpu().numpy()
+                self._count_d2h(rows.nbytes)
                 got.update(zip(mine, rows))
         return np.stack([got[i] for i in frames])
 
     def collect(self, job: dict) -> list[BatchResult]:
         """Fetch + host stages for a submitted batch (blocks on its event)."""
+        host, events = job["fetch"]
+        with span("batch.collect", frame=job.get("frame")):
+            with span("batch.fetch_wait", WAIT):
+                for event in events:
+                    event.synchronize()  # this batch's copies only, not the streams
+                packs = host.numpy()  # ONE fetch for the whole batch
+            with span("batch.host") as stage:
+                with self._fetch_lock:
+                    self._fetched_seq = max(self._fetched_seq, job.get("seq", 0))
+                results = self._host_stages(job, packs)
+        self.stats["t_host_ms"] += stage.seconds * 1000.0
+        return results
+
+    def _host_stages(self, job: dict, packs: np.ndarray) -> list[BatchResult]:
+        """The fetched [B, bytes] hostpacks -> each frame's result: the
+        sections parsed, misses fetched, the host stages on the pool."""
         g = self.geom
         n = job["n"]
         inline = job["inline"]
         with_ocr = job["with_ocr"]
-        t0 = time.perf_counter()
-        host, events = job["fetch"]
-        for event in events:
-            event.synchronize()  # this batch's copies only, not the streams
-        packs = host.numpy()  # ONE fetch for the whole batch
-        t1 = time.perf_counter()
-        self.stats["t_fetch_ms"] += (t1 - t0) * 1000.0
-        with self._fetch_lock:
-            self._fetched_seq = max(self._fetched_seq, job.get("seq", 0))
         layout = ops_pipeline.hostpack_layout(
             g.map_h, g.map_w, with_ocr=with_ocr, with_quiet=True,
             crop_h=self.crop_h, crop_w=self.crop_w, scales_inline=inline,
@@ -752,7 +770,6 @@ class BatchPipeline:
                 results.append(futures[i].result())
             else:
                 results.append(BatchResult(True, [], None, None))
-        self.stats["t_host_ms"] += (time.perf_counter() - t1) * 1000.0
         return results
 
     def close(self) -> None:

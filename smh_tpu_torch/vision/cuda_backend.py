@@ -44,6 +44,7 @@ from __future__ import annotations
 import copy
 import math
 import os
+import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,6 +57,7 @@ from ..geometry import Line, Point, Rect
 from ..ops import lsd as ops_lsd
 from ..ops import pipeline as ops_pipeline
 from ..ops import scales_device as ops_scales_device
+from ..utils.timeshares import WAIT, span
 from . import lsd
 from .reference import DebugView
 
@@ -311,7 +313,9 @@ class CudaBackend:
             "h2d_bytes": 0,
             "device_scales_frames": 0,
             "device_scales_fallbacks": 0,
+            "d2h_bytes": 0,  # every device -> host copy, the hostpack's at its dispatch
         }
+        self._d2h_lock = threading.Lock()  # d2h_bytes grows on the submit, consume and branch threads
         # Delta upload chain (SMH_DELTA: auto|0|1; 1 forces it even for tiny
         # frames, 0 turns it off), owned by the submit half:
         #   _resident      device flat ROI buffer of the LAST DISPATCH (a
@@ -661,6 +665,7 @@ class CudaBackend:
         # Start the hostpack's D2H now, into pinned memory behind an event:
         # crop_to_map waits on this frame's event only.
         pack = out["hostpack"]
+        self._count_d2h(pack)
         if self.device.type == "cuda":
             host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
             host.copy_(pack, non_blocking=True)
@@ -669,6 +674,15 @@ class CudaBackend:
             self._fetch = (host, event)
         else:
             self._fetch = (pack, None)
+
+    def _count_d2h(self, t: torch.Tensor) -> None:
+        with self._d2h_lock:
+            self.stats["d2h_bytes"] += t.nbytes
+
+    def _d2h(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor copied to the host, its bytes counted."""
+        self._count_d2h(t)
+        return t.cpu().numpy()
 
     def _upload_and_pass(self, pending: tuple, kw: dict) -> dict:
         """Apply the pending upload (delta or full), queue the fused pass and
@@ -741,16 +755,22 @@ class CudaBackend:
     def crop_to_map(self, grayscale: bool) -> Optional[tuple]:
         if self.geom is None:
             raise RuntimeError("crop_to_map before load_frame")
-        g = self.geom
-        a = self._adapt
         if self._results is None or self._grayscale != grayscale:
             self._grayscale = grayscale
             self.dispatch()
-        f = self._dispatch_flags
         host, event = self._fetch
-        if event is not None:
-            event.synchronize()  # this frame's copy only, not the stream
-        pack = host.numpy()  # the one D2H per frame
+        with span("vision.fetch_wait", WAIT):
+            if event is not None:
+                event.synchronize()  # this frame's copy only, not the stream
+        with span("vision.parse"):
+            return self._parse_hostpack(host.numpy(), grayscale)  # the one D2H per frame
+
+    def _parse_hostpack(self, pack: np.ndarray, grayscale: bool) -> Optional[tuple]:
+        """The fetched hostpack -> the host sections, the ladders' adaptation
+        and crop_to_map's (ui map fetcher, map rect); None when asleep."""
+        g = self.geom
+        a = self._adapt
+        f = self._dispatch_flags
         layout = ops_pipeline.hostpack_layout(
             g.map_h, g.map_w, with_ocr=f.with_ocr, with_quiet=f.with_quiet,
             crop_h=f.crop_h, crop_w=f.crop_w, scales_inline=f.inline,
@@ -813,7 +833,7 @@ class CudaBackend:
             else:
                 # Sparse miss: fetch the full bit-mask (one extra copy).
                 self.stats["lsd_sparse_misses"] += 1
-                bits = self._results["lsd_bits"].cpu().numpy()
+                bits = self._d2h(self._results["lsd_bits"])
             self._host.update(lsd_crop_bits=bits, **full)
             self._adapt_sp_rung(nz, f.sparse)
         else:
@@ -831,7 +851,7 @@ class CudaBackend:
                 # Window miss: fetch the full bit-mask (one extra copy) and
                 # escalate the rung.
                 self.stats["lsd_window_misses"] += 1
-                self._host.update(lsd_crop_bits=self._results["lsd_bits"].cpu().numpy(), **full)
+                self._host.update(lsd_crop_bits=self._d2h(self._results["lsd_bits"]), **full)
             if a.ladder_h is not None:
                 self._adapt_rung(y1 - y0, x1 - x0)
 
@@ -847,6 +867,7 @@ class CudaBackend:
         # device checksum is unchanged.
         results = self._results
         ui_check_host = self._host["ui_check"]
+        d2h = self._d2h
 
         def fetch_ui_map() -> np.ndarray:
             check = (*ui_check_host, grayscale)
@@ -856,7 +877,7 @@ class CudaBackend:
                 and a.ui_map_cache.shape[:2] == (g.map_h, g.map_w)
             ):
                 return a.ui_map_cache
-            ui = results["ui"].cpu().numpy()
+            ui = d2h(results["ui"])
             ui_map = np.empty((g.map_h, g.map_w, 4), dtype=np.uint8)
             if ui.ndim == 2:
                 ui_map[..., 0] = ui_map[..., 1] = ui_map[..., 2] = ui
@@ -951,7 +972,7 @@ class CudaBackend:
         if self._scalespack_host is None:
             if self._results is None or "scalespack" not in self._results:
                 raise RuntimeError("scales branch consumed but the dispatch packed no scalespack")
-            self._scalespack_host = self._results["scalespack"].cpu().numpy()
+            self._scalespack_host = self._d2h(self._results["scalespack"])
             self.stats["scalespack_fetches"] += 1
         return self._scalespack_host
 
@@ -995,6 +1016,7 @@ class CudaBackend:
         # Pin the device scalespack only when the worker may need it.
         needs_fallback = band == "miss" or not (textless or has_inline or serves)
         spack_dev = self._results.get("scalespack") if needs_fallback else None
+        d2h = self._d2h
 
         def fetch() -> tuple[np.ndarray, np.ndarray]:
             ocr_img = _ocr_image_from_host(host, g)
@@ -1002,7 +1024,7 @@ class CudaBackend:
             if ocr_img is None or scales_img is None:
                 if spack_dev is None:
                     raise RuntimeError("scales fallback needed but no scalespack was kept")
-                pack = spack_dev.cpu().numpy()
+                pack = d2h(spack_dev)
                 stats["scalespack_fetches"] += 1
                 layout = ops_pipeline.scalespack_layout(g.map_h, g.map_w)
                 so, ss = layout["scales_bits"]
@@ -1045,7 +1067,7 @@ class CudaBackend:
     def _full_mask_host(self) -> np.ndarray:
         """Full-size 0/255 host mask (the LSD_INPUT debug view)."""
         g = self.geom
-        return ops_pipeline.unpack_bits_host(self._results["lsd_bits"].cpu().numpy(), g.map_w) * np.uint8(255)
+        return ops_pipeline.unpack_bits_host(self._d2h(self._results["lsd_bits"]), g.map_w) * np.uint8(255)
 
     def _lsd_mask_dev(self) -> torch.Tensor:
         """The u8 0/255 device mask the ray march samples, rebuilt from the
@@ -1111,7 +1133,7 @@ class CudaBackend:
         if choice == DebugView.LSD_INPUT:
             return rgba(self._full_mask_host())
         if choice == DebugView.LSD_PREPROCESS and "isolated_map" in self._results:
-            return rgba(self._results["isolated_map"].cpu().numpy())
+            return rgba(self._d2h(self._results["isolated_map"]))
         if choice == DebugView.CROPPED_BRQ and "cropped_brq" in self._results:
-            return rgba(self._results["cropped_brq"].cpu().numpy())
+            return rgba(self._d2h(self._results["cropped_brq"]))
         return None

@@ -35,13 +35,20 @@ from ..ocr.engine import OcrEngine, OcrResult
 from ..settings import Settings
 from ..squadex import heightmaps
 from ..squadex.capture import CaptureThread, Frame
-from ..utils.timeshares import Timeshares, timeshare
+from ..utils.timeshares import WAIT, Timeshares, add, new_frame, span, timeshare
 from . import find_minimap as fm
 from . import mpx_ratio as mpx
 from .cuda_backend import CudaBackend
 from .reference import DebugView, ReferenceBackend
 
 log = logging.getLogger(__name__)
+
+
+def _frame_id(frame: Frame) -> int:
+    """The frame's trace id, given here if the loop did not give it one."""
+    if frame.seq is None:
+        frame.seq = new_frame()
+    return frame.seq
 
 
 @dataclasses.dataclass
@@ -219,26 +226,31 @@ class VisionState:
         """Pipelined mode: upload + dispatch a frame WITHOUT waiting for its
         results, so the fetch of the previous frame overlaps this one's
         device work. Returns None when the backend cannot pipeline."""
-        backend = self.delegate.current()
-        if not hasattr(backend, "snapshot_job"):
-            return None
-        try:
-            minimap_due, frame_size = self._prepare(backend, frame)
-            backend.load_frame(frame.image)
-            backend.dispatch(grayscale=self.settings.grayscale_map())
-            return {
-                "job": backend.snapshot_job(),
-                "minimap_due": minimap_due,
-                "frame_size": frame_size,
-            }
-        except Exception:
-            log.exception("submit failed; frame will be processed unpipelined")
-            return None
+        fid = _frame_id(frame)
+        with span("vision.submit", frame=fid):
+            backend = self.delegate.current()
+            if not hasattr(backend, "snapshot_job"):
+                return None
+            try:
+                with span("vision.prepare"):
+                    minimap_due, frame_size = self._prepare(backend, frame)
+                with span("vision.load_frame", cpu=True):
+                    backend.load_frame(frame.image)
+                with span("vision.dispatch", cpu=True):
+                    backend.dispatch(grayscale=self.settings.grayscale_map())
+                with span("vision.snapshot"):
+                    job = backend.snapshot_job()
+                return {"job": job, "minimap_due": minimap_due, "frame_size": frame_size, "frame": fid}
+            except Exception:
+                log.exception("submit failed; frame will be processed unpipelined")
+                return None
 
     def process(
         self, frame: Frame, debug: Optional[DebugBox] = None, submitted: Optional[dict] = None
     ) -> Optional[VisionResults]:
-        return self._process(self.delegate.current(), frame, debug, submitted)
+        fid = submitted["frame"] if submitted is not None else _frame_id(frame)
+        with span("vision.consume", frame=fid):
+            return self._process(self.delegate.current(), frame, debug, submitted)
 
     def _process(
         self,
@@ -416,8 +428,17 @@ class VisionState:
             results.markers = markers_branch()
             results.meters_to_px_ratio = self._scales_async_step(backend, frame.dpi)
         elif run_scales:
-            f_markers = self._pool.submit(markers_branch)
-            f_scales = self._pool.submit(scales_branch)
+            fid = frame.seq
+
+            def traced(branch, name):
+                def run():
+                    with span(name, frame=fid):
+                        return branch()
+
+                return run
+
+            f_markers = self._pool.submit(traced(markers_branch, "vision.markers"))
+            f_scales = self._pool.submit(traced(scales_branch, "vision.scales"))
             results.markers = f_markers.result()
             results.meters_to_px_ratio = f_scales.result()
         else:
@@ -545,7 +566,7 @@ class VisionLoop:
 
     def _next_frame(self) -> Optional[Frame]:
         if self.fake_input is not None:
-            return Frame(self.fake_input, None)
+            return Frame(self.fake_input, None, new_frame())
         return self.capture.fresh_frame()
 
     def wake(self) -> None:
@@ -565,7 +586,8 @@ class VisionLoop:
             # (src/vision/mod.rs:271-277).
             log.exception("error processing frame")
             return
-        self.on_update(results, debug)
+        with span("loop.on_update", frame=frame.seq):
+            self.on_update(results, debug)
 
     def _run_threaded(self) -> Optional[Frame]:
         """Two-thread pipelined loop: THIS thread consumes (fetch + host
@@ -585,6 +607,7 @@ class VisionLoop:
         fallback: list[Frame] = []
 
         def submitter() -> None:
+            idle = None  # when the mailbox was first found empty
             try:
                 while not self._shutdown.is_set():
                     if self.state.settings.paused():
@@ -592,24 +615,31 @@ class VisionLoop:
                         continue
                     frame = self._next_frame()
                     if frame is None:
+                        if idle is None:
+                            idle = time.perf_counter()
                         self._shutdown.wait(self._interval)
                         continue
                     t0 = time.perf_counter()
+                    if idle is not None:  # one record for the whole wait, however many polls
+                        add("loop.no_frame", WAIT, idle, t0, frame.seq)
+                        idle = None
                     sub = self.state.submit(frame)
                     if sub is None:
                         fallback.append(frame)
                         return
                     # Blocking put with a shutdown check (the consumer always
                     # drains, so this makes progress).
-                    while not self._shutdown.is_set():
-                        try:
-                            jobs.put((frame, sub), timeout=0.2)
-                            break
-                        except queue.Full:
-                            continue
+                    with span("loop.queue_put", WAIT, frame=frame.seq):
+                        while not self._shutdown.is_set():
+                            try:
+                                jobs.put((frame, sub), timeout=0.2)
+                                break
+                            except queue.Full:
+                                continue
                     elapsed = time.perf_counter() - t0
                     if elapsed < self._interval:
-                        self._shutdown.wait(self._interval - elapsed)
+                        with span("loop.pace", WAIT, frame=frame.seq):
+                            self._shutdown.wait(self._interval - elapsed)
             finally:
                 while True:  # always deliver the sentinel
                     try:
@@ -624,7 +654,8 @@ class VisionLoop:
         t = threading.Thread(target=submitter, name="vision-submit", daemon=True)
         t.start()
         while True:
-            j = jobs.get()
+            with span("loop.queue_get", WAIT):
+                j = jobs.get()
             if j is done:
                 break
             frame, sub = j
@@ -653,6 +684,7 @@ class VisionLoop:
             f, sub = pending.popleft()
             self._step(f, sub)
 
+        idle = None  # when the mailbox was first found empty
         while not self._shutdown.is_set():
             if self.state.settings.paused():
                 while pending:  # drain before parking
@@ -666,10 +698,15 @@ class VisionLoop:
                 if pending:
                     drain_one()
                     continue
+                if idle is None:
+                    idle = time.perf_counter()
                 self._shutdown.wait(self._interval)
                 continue
 
             t0 = time.perf_counter()
+            if idle is not None:
+                add("loop.no_frame", WAIT, idle, t0, frame.seq)
+                idle = None
 
             if self.pipelined:
                 sub = self.state.submit(frame)
@@ -679,7 +716,8 @@ class VisionLoop:
                         drain_one()
                     elapsed = time.perf_counter() - t0
                     if elapsed < self._interval:
-                        self._shutdown.wait(self._interval - elapsed)
+                        with span("loop.pace", WAIT, frame=frame.seq):
+                            self._shutdown.wait(self._interval - elapsed)
                     continue
                 # Backend can't pipeline: keep delivery order — drain the
                 # older pending frames before processing this one.
@@ -689,7 +727,8 @@ class VisionLoop:
             self._step(frame)
             elapsed = time.perf_counter() - t0
             if elapsed < self._interval:
-                self._shutdown.wait(self._interval - elapsed)
+                with span("loop.pace", WAIT, frame=frame.seq):
+                    self._shutdown.wait(self._interval - elapsed)
 
         while pending:
             drain_one()

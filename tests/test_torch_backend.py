@@ -88,7 +88,7 @@ def test_port_matches_tpu_backend_and_oracle(states):
     assert be._dispatch_flags[3] == "device" and be._dispatch_flags[4] is not None  # sparse
     assert be.stats["device_scales_frames"] == 1 and be.stats["device_scales_fallbacks"] == 0
     assert be.stats["scalespack_fetches"] == 0
-    assert set(be.stats) == set(ref.delegate.backend.stats)
+    assert set(be.stats) - {"d2h_bytes"} == set(ref.delegate.backend.stats)  # d2h_bytes: the port's own counter
     np.testing.assert_array_equal(res.map, ref.process(JFrame(frame, 96)).map)
 
     oracle = tpipeline.VisionState(settings=_settings(hw=False), ocr_engine=SmhOcrEngine(), device="cpu")
@@ -158,7 +158,7 @@ def test_engine_without_device_read_uses_the_scalespack(monkeypatch):
             bp, br = port.delegate.backend, ref.delegate.backend
             assert bp._dispatch_flags[3] == br._dispatch_flags[6]
             assert bp._dispatch_flags.band == br._dispatch_flags[7]
-            assert bp.stats == br.stats
+            assert {k: v for k, v in bp.stats.items() if k != "d2h_bytes"} == br.stats  # the port's own counter
             inlines.append(bp._dispatch_flags[3])
             bands.append(bp._dispatch_flags.band)
         assert inlines == ["binary"] * (cb._INLINE_STABLE_AFTER + 1) + ["none"]

@@ -71,7 +71,7 @@ def test_debug_views_match_tpu_backend(engine):
             assert marker.any()
         else:
             np.testing.assert_array_equal(got, want, err_msg=view.name)
-    assert port.stats == ref.stats
+    assert {k: v for k, v in port.stats.items() if k != "d2h_bytes"} == ref.stats  # d2h_bytes: the port's own
 
 
 def test_views_without_debug_match_tpu_backend():

@@ -55,7 +55,18 @@ COPIES = {
     "geometry.py": set(),
     "settings.py": set(),
     "utils/__init__.py": set(),
-    "utils/timeshares.py": set(),
+    # The span recorder: every timeshare is also a record of a bounded ring
+    # (spans, frame ids, SMH_TRACE, the Chrome trace writer).
+    "utils/timeshares.py": {
+        "__doc__", "import collections", "import contextlib", "import itertools", "import json", "import os",
+        "import threading", "ENABLED", "CAPACITY", "(WORK, WAIT, QUEUE)", "Record", "(_START, _END)", "Ring",
+        "Ring.__doc__", "Ring.__init__", "Ring.append", "Ring.records", "RING", "_ids", "_frames",
+        "_local", "new_frame", "_stack", "span", "span.__doc__",
+        "span: __slots__ = ('name', 'kind', 'frame', 'cpu', 'start', 'end', '_id', '_parent', '_cpu0', '_shares', "
+        "'_stage')",
+        "span.__init__", "span.__enter__", "span.__exit__", "span.seconds", "add", "_STAGE_SPANS", "timeshare",
+        "write_chrome_trace",
+    },
     "utils/plot.py": set(),
     "utils/ringlog.py": set(),
     # Builds into smh_tpu_torch/build/native-<hash>/ under a temporary name
@@ -72,10 +83,16 @@ COPIES = {
     "vision/mpx_ratio.py": set(),
     "vision/inspect.py": set(),
     # The delegate picks CudaBackend on an explicit device; no TPU fallback.
+    # The submit and consume halves, the branches and the loop's waits are
+    # spans under the frame's id.
     "vision/pipeline.py": {
         "__doc__", "make_backend", "BackendDelegate.__doc__", "BackendDelegate.__init__",
         "BackendDelegate.current", "BackendDelegate.mark_tpu_failed", "VisionState.__init__",
         "VisionState.process", "from .. import resolve_device", "from .cuda_backend import CudaBackend",
+        "from ..utils.timeshares import Timeshares, timeshare",
+        "from ..utils.timeshares import WAIT, Timeshares, add, new_frame, span, timeshare", "_frame_id",
+        "VisionState.submit", "VisionState._process", "VisionLoop._next_frame", "VisionLoop._step",
+        "VisionLoop._run_threaded", "VisionLoop._run",
     },
     "ocr/__init__.py": set(),
     "ocr/engine.py": set(),
@@ -83,7 +100,12 @@ COPIES = {
     "ocr/smhocr.py": {"FONT_DIR", "FONTS", "_FONTS", "import pathlib"},  # the bundled fonts
     "ocr/tesseract.py": set(),
     "squadex/__init__.py": set(),
-    "squadex/capture.py": set(),
+    # A frame's id (given at the take), the grab's span and the mailbox's record.
+    "squadex/capture.py": {
+        "import time", "from ..utils.timeshares import QUEUE, add, new_frame, span",
+        "Frame: seq: Optional[int] = dataclasses.field(default=None, compare=False)", "CaptureThread.__init__",
+        "CaptureThread.fresh_frame", "CaptureThread._run",
+    },
     "squadex/heightmaps.py": set(),
     "squadex/solutions.py": {"__doc__"},  # cites the reference's sources without a machine path
     "squadex/milliradians.py": {"__doc__"},
@@ -116,7 +138,8 @@ COPIES = {
         "RESOLUTIONS", "resolution_frame", "scales_read_cases", "text_rgb", "brq_preprocess_cases",
         "mask_bits_cases", "window_crop_cases", "ocr_band_cases",
     },
-    # --device (the App, its worker and --warmup run on it), no compile cache.
+    # --device (the App, its worker and --warmup run on it), no compile cache;
+    # --trace-out writes the span recorder's ring at exit.
     "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},
 }
 DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/www/index.html"]

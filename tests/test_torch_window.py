@@ -78,7 +78,7 @@ ADAPT_FIELDS = [f for f in cb._AdaptState.__slots__ if f not in ("ui_check", "ui
 def assert_same_state(port: cb.CudaBackend, ref: tb.TpuBackend) -> None:
     """Hostpack bytes, stats, every ladder field and the parsed sections."""
     np.testing.assert_array_equal(port._results["hostpack"].numpy(), np.asarray(ref._results["hostpack"]))
-    assert port.stats == ref.stats
+    assert {k: v for k, v in port.stats.items() if k != "d2h_bytes"} == ref.stats  # d2h_bytes: the port's own
     for name in ADAPT_FIELDS:
         assert getattr(port._adapt, name) == getattr(ref._adapt, name), name
     f, rf = port._dispatch_flags, ref._dispatch_flags
