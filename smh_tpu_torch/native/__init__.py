@@ -1,9 +1,11 @@
 """Native C++ host module: build-on-first-use, ctypes-loaded, optional.
 
 The reference ships its host hot loops as Rust+rayon; here they are C++
-(+OpenMP) behind a C ABI. The library and its generated consts header are
-built into `smh_tpu_torch/build/native-<hash>/`, keyed by a hash of the
-source, the consts and the flags (never into the source tree), under a
+(+OpenMP) behind a C ABI: `smhnative.cpp` (the JAX package's source) and
+`smhroll.cpp` (the batch delta path's banded roll) make one library. The
+library and its generated consts header are built into
+`smh_tpu_torch/build/native-<hash>/`, keyed by a hash of the sources, the
+consts and the flags (never into the source tree), under a
 temporary name that is renamed into place, so concurrent builders never
 load a torn file. One process builds at a time (an `fcntl.flock` on a file
 in the build directory); the others wait for it and load its library
@@ -35,6 +37,7 @@ log = logging.getLogger(__name__)
 
 _HERE = pathlib.Path(__file__).resolve().parent
 _SRC = _HERE / "smhnative.cpp"
+_ROLL_SRC = _HERE / "smhroll.cpp"
 _BUILD_ROOT = _HERE.parent / "build"
 _FLAGS = ("-O3", "-march=native", "-fopenmp", "-shared", "-fPIC")
 
@@ -45,9 +48,10 @@ build_error: Optional[str] = None  # the failed build's command and stderr
 
 
 def lib_path() -> pathlib.Path:
-    """Where this source + consts + flags build lands."""
+    """Where these sources + consts + flags build lands."""
     h = hashlib.sha256()
     h.update(_SRC.read_bytes())
+    h.update(_ROLL_SRC.read_bytes())
     h.update(C.generate_c_header().encode())
     h.update(" ".join(_FLAGS).encode())
     return _BUILD_ROOT / f"native-{h.hexdigest()[:16]}" / "libsmhnative.so"
@@ -61,7 +65,7 @@ def _build(out: pathlib.Path) -> bool:
     tmp.mkdir(parents=True, exist_ok=True)
     try:
         (tmp / "smh_consts.h").write_text(C.generate_c_header())
-        cmd = ["g++", *_FLAGS, "-I", str(tmp), "-o", str(tmp / out.name), str(_SRC), "-lm"]
+        cmd = ["g++", *_FLAGS, "-I", str(tmp), "-o", str(tmp / out.name), str(_SRC), str(_ROLL_SRC), "-lm"]
         try:
             subprocess.run(cmd, check=True, capture_output=True, text=True, timeout=600)
         except subprocess.CalledProcessError as e:
@@ -162,6 +166,42 @@ def load() -> Optional[ctypes.CDLL]:
             ctypes.c_void_p,  # roll (mirror in, packed out)
             ctypes.c_void_p,  # dirty scratch
             ctypes.c_void_p,  # out idx
+        ]
+        lib.smh_roll_band_cap.restype = ctypes.c_int64
+        lib.smh_roll_band_cap.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64]
+        lib.smh_roll_band.restype = None
+        lib.smh_roll_band.argtypes = [
+            ctypes.c_void_p,  # map ROI pointers, one a frame
+            ctypes.c_void_p,  # map pitches
+            ctypes.c_void_p,  # button ROI pointers
+            ctypes.c_void_p,  # button pitches
+            ctypes.c_int,     # frames
+            ctypes.c_int,     # mh
+            ctypes.c_int,     # mw
+            ctypes.c_int,     # bh
+            ctypes.c_int,     # bw
+            ctypes.c_int64,   # total
+            ctypes.c_int,     # y0
+            ctypes.c_int,     # y1
+            ctypes.c_void_p,  # roll (shared by the bands)
+            ctypes.c_void_p,  # dirty scratch (the band's own)
+            ctypes.c_int64,   # cap: entries a frame
+            ctypes.c_void_p,  # out idx [frames, cap]
+            ctypes.c_void_p,  # out data [frames, cap, 32]
+            ctypes.c_void_p,  # out counts [frames, 3]
+        ]
+        lib.smh_roll_merge.restype = None
+        lib.smh_roll_merge.argtypes = [
+            ctypes.c_int,     # bands
+            ctypes.c_int,     # frames
+            ctypes.c_void_p,  # each band's idx
+            ctypes.c_void_p,  # each band's data
+            ctypes.c_void_p,  # each band's counts
+            ctypes.c_void_p,  # each band's cap
+            ctypes.c_int,     # bucket (0: count only)
+            ctypes.c_int,     # batch rows of out
+            ctypes.c_void_p,  # out: the batch delta buffer
+            ctypes.c_void_p,  # counts a frame
         ]
         lib.smh_find_lines_view.restype = ctypes.c_int
         lib.smh_find_lines_view.argtypes = [
@@ -348,3 +388,101 @@ def gather_subchunks(
         bucket,
         out.ctypes.data_as(ctypes.c_void_p),
     )
+
+
+
+def roll_band_cap(mh: int, mw: int, y0: int, y1: int, total: int) -> int:
+    """Entries roll_band can write a frame for rows [y0, y1) of an mh x mw
+    map in a `total`-byte layout: every sub-chunk the band's bytes touch."""
+    lib = load()
+    assert lib is not None
+    assert 0 <= y0 < y1 <= mh and total % 32 == 0
+    return int(lib.smh_roll_band_cap(mh, mw, y0, y1, ctypes.c_int64(total)))
+
+
+def _ptrs(arrays: list) -> np.ndarray:
+    return np.array([a.ctypes.data for a in arrays], dtype=np.uintp)
+
+
+def roll_frames(map_rois: list, btn_rois: list) -> tuple:
+    """A batch's BGRA map and button ROI views as roll_band reads them,
+    checked once for all its bands: the views (kept alive by the tuple),
+    their pointers and row pitches, and the shapes (mh, mw, bh, bw)."""
+    n = len(map_rois)
+    assert n == len(btn_rois) and n >= 1
+    for roi in (*map_rois, *btn_rois):
+        assert roi.dtype == np.uint8 and roi.ndim == 3 and roi.shape[2] == 4
+        assert roi.strides[2] == 1 and roi.strides[1] == 4
+    mh, mw = map_rois[0].shape[:2]
+    bh, bw = btn_rois[0].shape[:2]
+    assert all(m.shape[:2] == (mh, mw) for m in map_rois) and all(b.shape[:2] == (bh, bw) for b in btn_rois)
+    return (
+        map_rois, btn_rois, _ptrs(map_rois), np.array([m.strides[0] for m in map_rois], np.int64),
+        _ptrs(btn_rois), np.array([b.strides[0] for b in btn_rois], np.int64), (mh, mw, bh, bw),
+    )
+
+
+def roll_band(
+    frames: tuple, roll: np.ndarray, y0: int, y1: int, dirty: np.ndarray,
+    idx: np.ndarray, data: np.ndarray, cnt: np.ndarray,
+) -> None:
+    """Roll the map rows [y0, y1) of pack_diff_roll's flat layout (over the
+    whole map) through a batch of frames (roll_frames), in place in `roll`,
+    which the bands of one batch share: each writes only its own rows'
+    bytes. Frame f's entries go to idx[f] (int32, bitwise NOT where
+    unchanged) and data[f] (32 B payloads), counted per plane in cnt[f]:
+    its changed sub-chunks, and the partial ones at the band's edges and
+    sub-chunk 0 changed or not, gathered before the next frame overwrites
+    them. The band with the map's last rows also rolls the button and the
+    zero tail. dirty: the band's own u8 scratch of roll.size // 32; idx
+    [frames, cap] and data [frames, cap, 32] with cap >= roll_band_cap.
+    roll_merge joins the bands."""
+    lib = load()
+    assert lib is not None
+    maps, _, map_ptrs, map_pitch, btn_ptrs, btn_pitch, (mh, mw, bh, bw) = frames
+    n = len(maps)
+    assert roll.dtype == np.uint8 and roll.flags.c_contiguous and roll.size % 32 == 0
+    assert roll.size >= (mh * mw + bh * bw) * 3
+    cap = roll_band_cap(mh, mw, y0, y1, roll.size)
+    assert dirty.dtype == np.uint8 and dirty.size >= roll.size // 32
+    assert idx.dtype == np.int32 and idx.flags.c_contiguous and idx.shape[0] >= n and idx.shape[1] >= cap
+    assert data.dtype == np.uint8 and data.flags.c_contiguous and data.shape == (*idx.shape, 32)
+    assert cnt.dtype == np.int32 and cnt.flags.c_contiguous and cnt.shape[0] >= n and cnt.shape[1] == 3
+    lib.smh_roll_band(
+        map_ptrs.ctypes.data, map_pitch.ctypes.data, btn_ptrs.ctypes.data, btn_pitch.ctypes.data,
+        n, mh, mw, bh, bw, ctypes.c_int64(roll.size), y0, y1, roll.ctypes.data, dirty.ctypes.data,
+        ctypes.c_int64(idx.shape[1]), idx.ctypes.data, data.ctypes.data, cnt.ctypes.data,
+    )
+
+
+def roll_merge(
+    idxs: list, datas: list, cnts: list, n_frames: int, bucket: int = 0, out: "np.ndarray | None" = None,
+) -> np.ndarray:
+    """Join the row bands' roll_band entries (idxs, datas, cnts: one of each
+    a band, in the order of their rows) of each of n_frames frames: one
+    ascending list of changed sub-chunks a frame, an edge sub-chunk's
+    entries ORed. -> int32 [n_frames]: each frame's count of changed
+    sub-chunks. With bucket > 0, also writes the batch delta buffer `out`
+    ([B*bucket int32 indices | B*bucket 32 B payloads]): row f < n_frames
+    holds frame f's sub-chunks padded to `bucket` by repeating the last
+    (sub-chunk 0 where the frame did not change); the rows past n_frames
+    are the caller's."""
+    lib = load()
+    assert lib is not None
+    assert idxs and len(idxs) == len(datas) == len(cnts)
+    for idx, data, cnt in zip(idxs, datas, cnts):
+        assert idx.dtype == np.int32 and idx.flags.c_contiguous and idx.shape[0] >= n_frames >= 1
+        assert data.dtype == np.uint8 and data.flags.c_contiguous and data.shape == (*idx.shape, 32)
+        assert cnt.dtype == np.int32 and cnt.flags.c_contiguous and cnt.shape[0] >= n_frames and cnt.shape[1] == 3
+    rows = 0
+    if bucket > 0:
+        assert out is not None and out.dtype == np.uint8 and out.flags.c_contiguous
+        rows = out.size // (bucket * 36)
+        assert out.size == rows * bucket * 36 and rows >= n_frames
+    counts = np.empty(n_frames, np.int32)
+    caps = np.array([idx.shape[1] for idx in idxs], np.int64)
+    pi, pd, pc = _ptrs(idxs), _ptrs(datas), _ptrs(cnts)  # held until the call returns
+    lib.smh_roll_merge(
+        len(idxs), n_frames, pi.ctypes.data, pd.ctypes.data, pc.ctypes.data, caps.ctypes.data, int(bucket), rows, out.ctypes.data if bucket > 0 else None, counts.ctypes.data,
+    )
+    return counts

@@ -38,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ThreadPoolExecutor, wait
 from typing import Optional
 
 import numpy as np
@@ -54,6 +54,10 @@ from . import cuda_backend as cb
 from . import lsd as vlsd
 from . import mpx_ratio as mpx
 from .reference import find_longest_line as oracle_march
+
+# The fewest map rows a band of the delta path's roll takes: a thinner band
+# pays more for its task's hand-off than its sweep saves.
+_ROLL_BAND_ROWS = 64
 
 
 @dataclasses.dataclass
@@ -126,8 +130,15 @@ class BatchPipeline:
 
         self._native = native if native.available() else None
         self._diff_scratch = None  # int32 index scratch for the native diff
-        self._dirty_scratch = None  # u8 sub-chunk bitmap for the rolling diff
         self._pool = ThreadPoolExecutor(max_workers=max(1, host_workers), thread_name_prefix="batch-host")
+        # The delta path's roll in row bands, one task a band on a pool of
+        # its own (behind the host pool's stage tasks a band would hold up
+        # the submit); each band's scratch and entries are made at the
+        # first delta batch and kept.
+        n_bands = max(1, min(host_workers, g.map_h // _ROLL_BAND_ROWS))
+        self._roll_rows = [(j * g.map_h // n_bands, (j + 1) * g.map_h // n_bands) for j in range(n_bands)]
+        self._roll_pool = ThreadPoolExecutor(max_workers=n_bands, thread_name_prefix="batch-roll")
+        self._roll_bufs: Optional[list] = None
         self._ocr_lock = threading.Lock()
         self._scales_cache: dict = {}
         self._templates: dict = {}  # device -> the device scales read's templates, made at first use
@@ -151,9 +162,10 @@ class BatchPipeline:
         # t_* counters: cumulative ms per stage (pack/diff host halves, the
         # outstanding-batch gate's wait, the per-frame host stages), the
         # same timings as the spans batch.pack, batch.diff, batch.chain_wait
-        # and batch.host; d2h_bytes: every device -> host copy.
+        # and batch.host; d2h_bytes: every device -> host copy; roll_bands:
+        # the bands the delta path's roll ran (spans batch.roll_band).
         self.stats = {
-            "delta_batches": 0, "full_batches": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+            "delta_batches": 0, "full_batches": 0, "h2d_bytes": 0, "d2h_bytes": 0, "roll_bands": 0,
             "t_pack_ms": 0.0, "t_diff_ms": 0.0, "t_poke_ms": 0.0, "t_host_ms": 0.0,
         }
 
@@ -216,59 +228,58 @@ class BatchPipeline:
             fu.result()
         return out
 
-    def _roll_delta(self, frames: list[np.ndarray]):
+    def _roll_delta(self, frames: list[np.ndarray], frame: Optional[int] = None):
         """Rolling fused pack+diff+gather for the batch delta path: the chain
-        mirror rolls frame to frame IN PLACE (native pack_diff_roll), so
-        unchanged windows are compared in registers and never stored. Each
-        frame's changed chunks are gathered out of the rolling buffer before
-        the next frame overwrites them. Returns (buf, bucket) with bytes
-        equal to _delta_updates over _pack_rois rows, or None when a frame
-        overflows the delta ladder: the caller must then reseed with the
-        full batch upload (the mirror is mid-roll stale). The caller drops
-        the chain if anything raises before the mirror is retired."""
+        mirror rolls frame to frame IN PLACE, so unchanged windows are
+        compared in registers and never stored. The map's rows are cut into
+        bands (_roll_rows), each rolled through the whole batch by one task
+        of the roll pool (native roll_band: its changed sub-chunks gathered
+        before its next frame overwrites them), then joined frame by frame
+        (native roll_merge). Returns (buf, bucket) with bytes equal to
+        _delta_updates over _pack_rois rows, or None when a frame overflows
+        the delta ladder: the caller must then reseed with the full batch
+        upload (the mirror holds bytes the device never got). The caller
+        drops the chain if anything raises before the mirror is retired.
+        `frame`: the batch's id, given to the bands' spans."""
         native = self._native
         g = self.geom
         w = self._mirror
+        n = len(frames)
         n_sub = w.size // cb._DELTA_SUB
-        scratch = self._diff_scratch
-        if scratch is None or scratch.size < n_sub:
-            scratch = self._diff_scratch = np.empty(n_sub, np.int32)
-        dirty = self._dirty_scratch
-        if dirty is None or dirty.size < n_sub:
-            dirty = self._dirty_scratch = np.empty(n_sub, np.uint8)
-        tmps: list[tuple[int, np.ndarray]] = []
-        for f in frames:
-            m = f[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w]
-            b = f[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w]
-            cnt = native.pack_diff_roll(m, b, w, dirty, scratch)
-            if cnt == 0:
-                scratch[0] = 0  # no-op keepalive chunk (flags may differ)
-                cnt = 1
-            if cb._delta_bucket(cnt, n_sub) is None:
-                return None  # ladder overflow: full upload wins
-            tmp = np.empty(cnt * 4 + cnt * cb._DELTA_SUB, dtype=np.uint8)
-            native.gather_subchunks(w, scratch, cnt, cnt, tmp)
-            tmps.append((cnt, tmp))
-        bucket = cb._delta_bucket(max(c for c, _ in tmps), n_sub)
-        assert bucket is not None  # every frame passed individually
+        if self._roll_bufs is None:
+            self._roll_bufs = []
+            for y0, y1 in self._roll_rows:
+                cap = native.roll_band_cap(g.map_h, g.map_w, y0, y1, w.size)
+                self._roll_bufs.append((
+                    np.empty(n_sub, np.uint8), np.empty((self.batch, cap), np.int32),
+                    np.empty((self.batch, cap, cb._DELTA_SUB), np.uint8), np.empty((self.batch, 3), np.int32),
+                ))
+        rois = native.roll_frames(
+            [f[g.map_y : g.map_y + g.map_h, g.map_x : g.map_x + g.map_w] for f in frames],
+            [f[g.btn_y : g.btn_y + g.btn_h, g.btn_x : g.btn_x + g.btn_w] for f in frames],
+        )
+
+        def band(rows: tuple[int, int], bufs: tuple) -> None:
+            with span("batch.roll_band", cpu=True, frame=frame):
+                native.roll_band(rois, w, *rows, *bufs)
+
+        futs = [self._roll_pool.submit(band, rows, bufs) for rows, bufs in zip(self._roll_rows, self._roll_bufs)]
+        wait(futs)  # every band is off the mirror before anything raises
+        for fu in futs:
+            fu.result()
+        self.stats["roll_bands"] += len(futs)
+        _, idxs, datas, cnts = zip(*self._roll_bufs)
+        counts = native.roll_merge(idxs, datas, cnts, n)
+        bucket = cb._delta_bucket(max(int(counts.max()), 1), n_sub)  # no change: a keep-alive chunk
+        if bucket is None:
+            return None  # ladder overflow: full upload wins
         bsz = self.batch
         buf = np.empty(bsz * bucket * 4 + bsz * bucket * cb._DELTA_SUB, np.uint8)
-        idxs = buf[: bsz * bucket * 4].view(np.int32).reshape(bsz, bucket)
-        datas = buf[bsz * bucket * 4 :].reshape(bsz, bucket, cb._DELTA_SUB)
-        for i in range(bsz):
-            if i < len(tmps):
-                cnt, tmp = tmps[i]
-                ti = tmp[: cnt * 4].view(np.int32)
-                td = tmp[cnt * 4 :].reshape(cnt, cb._DELTA_SUB)
-                idxs[i, :cnt] = ti
-                idxs[i, cnt:] = ti[-1]
-                datas[i, :cnt] = td
-                datas[i, cnt:] = td[-1]
-            else:
-                # Padding rows replay chunk 0 of the last frame: exactly
-                # _delta_updates' ch=zeros(1) over rois[n-1].
-                idxs[i, :] = 0
-                datas[i, :] = w[: cb._DELTA_SUB]
+        native.roll_merge(idxs, datas, cnts, n, bucket, buf)
+        # Padding rows replay chunk 0 of the last frame: exactly
+        # _delta_updates' ch=zeros(1) over rois[n-1].
+        buf[: bsz * bucket * 4].view(np.int32).reshape(bsz, bucket)[n:] = 0
+        buf[bsz * bucket * 4 :].reshape(bsz, bucket, cb._DELTA_SUB)[n:] = w[: cb._DELTA_SUB]
         return buf, bucket
 
     def _fused_ok(self, frames: list[np.ndarray]) -> bool:
@@ -487,14 +498,14 @@ class BatchPipeline:
         fid = new_frame()
         try:
             with span("batch.submit", frame=fid):
-                job = self._submit(frames, n, delta_ok)
+                job = self._submit(frames, n, delta_ok, fid)
         except BaseException:
             self._mirror = self._resident = None
             raise
         job["frame"] = fid
         return job
 
-    def _submit(self, frames: list[np.ndarray], n: int, delta_ok: bool) -> dict:
+    def _submit(self, frames: list[np.ndarray], n: int, delta_ok: bool, fid: int) -> dict:
         g = self.geom
         rois = None
         upd = None
@@ -504,7 +515,7 @@ class BatchPipeline:
             if fused and delta_ok:
                 # Rolling in-place pack+diff+gather: no batch buffer write for
                 # unchanged windows, no mirror copy; t_pack_ms carries the sweep.
-                upd = self._roll_delta(frames)
+                upd = self._roll_delta(frames, fid)
                 rolled = upd is not None
                 if not rolled:
                     delta_ok = False  # ladder overflow mid-roll: reseed full
@@ -774,3 +785,4 @@ class BatchPipeline:
 
     def close(self) -> None:
         self._pool.shutdown(wait=False)
+        self._roll_pool.shutdown(wait=False)

@@ -204,8 +204,9 @@ def test_batch_pipeline_index_tables_are_non_decreasing(route):
         frames = _drag(7)
         rows = bp._pack_rois(frames[:4]).copy()
         bp._mirror = rows[3].copy()
-        if route == "roll":
+        if route == "roll":  # the row bands, merged
             got = bp._roll_delta(frames[4:])
+            assert bp.stats["roll_bands"] == len(bp._roll_rows) > 1
         else:
             if route == "two-pass numpy":
                 bp._native = None

@@ -71,10 +71,12 @@ COPIES = {
     "utils/ringlog.py": set(),
     # Builds into smh_tpu_torch/build/native-<hash>/ under a temporary name
     # renamed into place, one process at a time under a file lock, and keeps
-    # the compiler's message.
+    # the compiler's message; the batch delta path's roll in row bands
+    # (smhroll.cpp, built into the same library) and its wrappers.
     "native/__init__.py": {
         "__doc__", "_SO", "_BUILD_ROOT", "_FLAGS", "build_error", "lib_path", "_build", "load",
         "import fcntl", "import hashlib", "import os", "import shutil",
+        "_ROLL_SRC", "roll_band_cap", "_ptrs", "roll_frames", "roll_band", "roll_merge",
     },
     "vision/pixmath.py": set(),
     "vision/lsd.py": set(),
