@@ -2021,7 +2021,9 @@ def phase_ray_march(dev: torch.device) -> dict:
     """Kernel 4 against its plain version: ends, winners and lengths
     bit-equal, on the map shapes, with border, line and background seeds,
     B = 1, 8 and 16, max_gap 15 and 31 (a run across a word seam), with and
-    without max_len; then its time and launches per call at B = 8."""
+    without max_len, on both kinds of positions (closed form, and the
+    oracle's accumulated offsets that the live engine marches on); then its
+    time and launches per call at B = 8, each kind."""
     from smh_tpu_torch import consts as C
     from smh_tpu_torch.ops import lsd as L
 
@@ -2039,19 +2041,20 @@ def phase_ray_march(dev: torch.device) -> dict:
             pts = ray_march_seeds(rng, mask, b, edge=True)
             pts_t = torch.from_numpy(pts).to(dev)
             for gap in (mg, 31):
-                for max_len in (None, diag):
+                for max_len, acc in ((None, False), (diag, False), (None, True), (diag, True)):
                     k_total = L.step_bound(gm.map_h, gm.map_w, gap, max_len)
-                    got = L.ray_march(mask_t, pts_t, gap, k_total, cos_t, sin_t)
-                    ex, ey = L.march_plain(mask_t, pts_t, gap, k_total, cos_t, sin_t)
+                    got = L.ray_march(mask_t, pts_t, gap, k_total, cos_t, sin_t, accumulate=acc)
+                    ex, ey = L.march_plain(mask_t, pts_t, gap, k_total, cos_t, sin_t, accumulate=acc)
                     want = (ex, ey, *L.finalize_plain(pts_t, ex, ey))
                     torch.cuda.synchronize()
                     for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got, want):
                         err = max(err, float((g_ - w_).abs().max()))
                         require(torch.equal(g_, w_), f"ray_march {name} != plain at {gm.map_h}x{gm.map_w} "
-                                f"B={b} max_gap={gap} max_len={max_len}")
+                                f"B={b} max_gap={gap} max_len={max_len} accumulate={acc}")
             at_start = int(((got[0] == pts_t[:, 0:1]) & (got[1] == pts_t[:, 1:2])).sum())
             print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B={b} ({b // 4} border, {(b - b // 4 + 1) // 2} line, "
-                  f"rest background seeds) bit-equal at max_gap {mg} and 31, with and without max_len; longest "
+                  f"rest background seeds) bit-equal at max_gap {mg} and 31, with and without max_len, closed "
+                  f"and accumulated positions; longest "
                   f"ray {float(got[4].max().sqrt()):.2f} px, {at_start} of {got[0].numel()} lanes end at their "
                   f"start", flush=True)
         pts_t = torch.from_numpy(ray_march_seeds(rng, mask, 8, edge=False)).to(dev)
@@ -2083,6 +2086,20 @@ def phase_ray_march(dev: torch.device) -> dict:
         print(f"kernels: ray_march {gm.map_h}x{gm.map_w} B=8 k_total={k_total}: {per_call:.0f} CUDA launch per "
               f"call, longest ray {float(torch.hypot(ex - pts_t[:, 0:1], ey - pts_t[:, 1:2]).max()):.2f} px; "
               + timing_line(times[h]), flush=True)
+        got = L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t, accumulate=True)
+        ex, ey = L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t, accumulate=True)
+        for name, g_, w_ in zip(("end_x", "end_y", "best_x", "best_y", "best_len"), got,
+                                (ex, ey, *L.finalize_plain(pts_t, ex, ey))):
+            require(torch.equal(g_, w_), f"accumulated ray_march {name} != plain at {gm.map_h}x{gm.map_w} on the "
+                    "timed seeds")
+        prof = device_profile(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t, accumulate=True))
+        require(prof["launches"] == 1.0, f"accumulated ray_march made {prof['launches']} CUDA launches per call")
+        acc = {"ms": cuda_ms(lambda: L.ray_march(mask_t, pts_t, mg, k_total, cos_t, sin_t, accumulate=True)),
+               "plain_ms": cuda_ms(lambda: L.finalize_plain(
+                   pts_t, *L.march_plain(mask_t, pts_t, mg, k_total, cos_t, sin_t, accumulate=True)), n=2),
+               "device_us": prof["us"], **bound(nbytes, 10 * float(steps.sum()))}
+        print(f"kernels: ray_march accumulated {gm.map_h}x{gm.map_w} B=8 k_total={k_total}: 1 CUDA launch per "
+              f"call; " + timing_line(acc), flush=True)
     return {
         "name": "ray_march", "route": "cuda",
         "source": "smh_tpu_torch/csrc/ray_march.cu",
@@ -2406,8 +2423,7 @@ def phase_device_engine(dev: torch.device) -> dict:
             oracle_state.close()
         state = new_state(dev)
         try:
-            be = state.delegate.current()
-            be.lsd_engine = "cuda"
+            state.settings.set("lsd_engine", "cuda", save=False)
             K.reset_launches()
             res = state.process(Frame(frame, 96))
             torch.cuda.synchronize()
@@ -2480,7 +2496,7 @@ def phase_timing(dev: torch.device, card: str) -> None:
                   f"inline {f.inline!r} band {f.band} on {card}", flush=True)
         state = new_state(dev)
         try:
-            state.delegate.current().lsd_engine = "cuda"
+            state.settings.set("lsd_engine", "cuda", save=False)
             K.reset_launches()
             samples, stages, res = _timed(state, static, warm=5)
             marches = K.LAUNCHES["ray_march"] / (len(samples) + 5)
@@ -3404,11 +3420,11 @@ def phase_resolutions(dev: torch.device, card: str) -> dict:
             require(np.array_equal(spack_gpu, spack_cpu), f"{label}: scalespack bytes differ from the CPU path")
             engine = ""
             if (w, h) in CUDA_ENGINE_SIZES:
-                be.lsd_engine = "cuda"
+                card_state.settings.set("lsd_engine", "cuda", save=False)
                 try:
                     res_c = _count(launches, lambda: card_state.process(Frame(frame, 96)))
                 finally:
-                    be.lsd_engine = "native"
+                    card_state.settings.set("lsd_engine", "native", save=False)
                 require(K.LAUNCHES["ray_march"] > 0, f"{label}: the cuda engine did not march: {K.LAUNCHES}")
                 got_c = summarize(res_c)
                 require(len(got_c[0]) == 1 and ends_close(got_c[0], want[0]),

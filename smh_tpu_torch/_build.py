@@ -61,6 +61,8 @@ _SIGNATURES = {
     # (mask, H, W, pts, B, cos, sin, N, max_gap, k_total, end_x, end_y,
     #  best_x, best_y, best_len, stream)
     "smh_ray_march": [_VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    # smh_ray_march on the oracle's positions (the offset accumulated a step at a time)
+    "smh_ray_march_acc": [_VP, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     # (masks, mask_stride (bytes), H, W, pts, B, ...): smh_ray_march with
     # seed b's mask at masks + b * mask_stride
     "smh_ray_march_masks": [_VP, _I64, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],

@@ -10,6 +10,7 @@ cache (no JAX here).
 Usage:
   python -m smh_tpu_torch.app --synthetic --pipelined --no-web   # on a CUDA device
   python -m smh_tpu_torch.app --synthetic --warmup --worker --no-web   # warmed, in a worker process
+  python -m smh_tpu_torch.app --synthetic --pipelined --lsd-engine cuda --no-web   # line search on the card
   python -m smh_tpu_torch.app --synthetic --debug-web   # debug telemetry + /api/debug-view
   python -m smh_tpu_torch.app --synthetic --backend numpy --device cpu   # the numpy oracle, no card
   python -m smh_tpu_torch.app --image frame.png --device cuda:1
@@ -29,7 +30,7 @@ import numpy as np
 
 from . import consts as C
 from .ocr import tesseract
-from .settings import Settings
+from .settings import LSD_ENGINES, Settings
 from .squadex import heightmaps as hm_store
 from .squadex.capture import (
     BlackoutFallbackSource,
@@ -363,6 +364,7 @@ class App:
                 "paused": self.settings.paused(),
                 "squad_dir": self.settings.squad_dir(),
                 "squad_pak_aes": self.settings.squad_pak_aes(),
+                "lsd_engine": self.settings.lsd_engine(),
             }
         if path == "/api/settings/set":
             key = query.get("key")
@@ -384,6 +386,10 @@ class App:
                 self._wake()
             elif key in ("squad_dir", "squad_pak_aes"):
                 self.settings.set(key, value or None)
+            elif key == "lsd_engine":
+                if value not in LSD_ENGINES:
+                    return 400, {"error": f"lsd_engine must be one of {list(LSD_ENGINES)}"}
+                self.settings.set(key, value)
             else:
                 return 400, {"error": f"unknown setting {key}"}
             _, obj = self._api("/api/settings", {})
@@ -593,6 +599,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dpi", type=int, default=None)
     ap.add_argument("--backend", choices=["cuda", "numpy"], default=None)
     ap.add_argument("--device", default="cuda", help='CUDA device of the cuda backend ("cuda:N")')
+    ap.add_argument("--lsd-engine", choices=list(LSD_ENGINES), default=None,
+                    help='the cuda backend\'s line search: "native" (the C++ march on the host) or "cuda" '
+                         "(the host seed scan over the device ray march); sets the lsd_engine setting "
+                         "for this run")
     ap.add_argument("--no-web", action="store_true")
     ap.add_argument(
         "--pipelined", action="store_true",
@@ -632,6 +642,17 @@ def build_parser() -> argparse.ArgumentParser:
                          "stages) as Chrome trace-event JSON, which Perfetto opens; with --worker "
                          "the pipeline's spans stay in the worker process")
     return ap
+
+
+def load_settings(args) -> Settings:
+    """The settings file with the command line's overrides: --backend and
+    --lsd-engine hold for this run only and never rewrite the file."""
+    settings = Settings(path=args.settings)
+    if args.backend:
+        settings.set("hardware_acceleration", args.backend == "cuda", save=False)
+    if args.lsd_engine:
+        settings.set("lsd_engine", args.lsd_engine, save=False)
+    return settings
 
 
 def main(argv=None) -> int:
@@ -676,10 +697,7 @@ def main(argv=None) -> int:
             print(f"wrote {args.export_png}")
         return 0
 
-    settings = Settings(path=args.settings)
-    if args.backend:
-        # An override for this run only: a CLI flag must not rewrite settings.json.
-        settings.set("hardware_acceleration", args.backend == "cuda", save=False)
+    settings = load_settings(args)
 
     if args.warmup and settings.hardware_acceleration():
         from .ops.warmup import warmup

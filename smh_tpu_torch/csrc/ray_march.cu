@@ -23,6 +23,20 @@
 // Seeds lie inside the plane (the backend seeds from mask pixels), so a
 // ray's in-plane steps are a prefix of k (positions are monotone in k).
 //
+// smh_ray_march_acc marches on the oracle's positions instead (upstream
+// vision-cpu/src/lib.rs:387-449, and its GPU twin's one thread an angle):
+//
+//   pos(k) = off(k) + start, one rounding, where off(0) = 0 and off(k) =
+//            off(k - 1) + d, each addition rounded (`x_off += dx`);
+//   a ray that ends on a gap ends at pos(s) - d, s the gap's first sample,
+//            if s's byte is 0, else at its start (the oracle restores the
+//            gap's first position and takes the same final check as a ray
+//            that left the plane).
+//
+// A thread takes its word's offsets by 32 real additions; a warp's lanes
+// and the ends take off(k) by `advance`, which jumps over the additions of
+// one binade exactly.
+//
 // The design, for an H100 (where the simple version paid one L2 round trip
 // per step, since each step's test waited for its load):
 //
@@ -82,44 +96,113 @@ constexpr int LANE_CHUNKS = 1;    // words a thread marches alone
 constexpr int WARP_WORDS = 4;     // words a warp loads per round
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Ray {
-  float x0, y0, dx, dy;
-};
-
 __device__ __forceinline__ float pos(float o, float d, int k) {
   return __fadd_rn(o, __fmul_rn(d, (float)k));
 }
+
+// s with d added n times, each addition rounded to nearest even, exactly,
+// without n dependent additions. While the sum stays in one binade every
+// addition rounds to that binade's grid u, so the increment it adds is
+// constant from the second addition that lands there (the first may round
+// a tie from an odd multiple of u; the sums it lands on are even, and from
+// an even multiple the tie goes the same way each time): three real
+// additions a binade, then a jump to the binade's top at most. Rounding to
+// nearest is symmetric, so d < 0 runs on -s and -d.
+__device__ __forceinline__ float advance(float s, float d, int n) {
+  if (n <= 0) return s;
+  if (d == 0.f) return __fadd_rn(s, d);
+  const bool neg = d < 0.f;
+  const float a = fabsf(d);
+  float t = neg ? -s : s;
+  while (n > 0) {
+    const float t1 = __fadd_rn(t, a);
+    t = t1;
+    if (--n == 0) break;
+    const float t2 = __fadd_rn(t1, a);
+    t = t2;
+    if (--n == 0) break;
+    const float t3 = __fadd_rn(t2, a);
+    t = t3;
+    if (--n == 0) break;
+    // t1's binade [top / 2, top) and its grid u = top * 2^-24 (t1 >= a > 0 is normal).
+    const int bits = (__float_as_int(t1) & 0x7f800000) + 0x00800000;
+    const float top = __int_as_float(bits);
+    if (t3 < top) {
+      const float per_u = __int_as_float(0x8b000000 - bits);  // 1 / u = 2^24 / top, a power of two
+      const float inc = __fsub_rn(t3, t2);  // exact: t2 and t3 share a binade
+      const int steps = (int)__fmul_rn(inc, per_u);  // integers below 2^24: exact
+      if (steps == 0) break;  // the sum no longer moves
+      const int m = min(n, (int)__fmul_rn(__fsub_rn(top, t3), per_u) / steps);
+      t = __fadd_rn(t3, __fmul_rn((float)m, inc));  // a multiple of u up to top: exact
+      n -= m;
+    }
+  }
+  return neg ? -t : t;
+}
+
+// A lane's ray. With ACC its positions are the oracle's: (bx, by) is the
+// offset at step kb, from which `sample` advances (rebase moves it on).
+template <bool ACC>
+struct Ray {
+  float x0, y0, dx, dy;
+  float bx = 0.f, by = 0.f;
+  int kb = 0;
+  __device__ Ray(float x0_, float y0_, float dx_, float dy_) : x0(x0_), y0(y0_), dx(dx_), dy(dy_) {}
+  __device__ void rebase(int k) {
+    bx = advance(bx, dx, k - kb);
+    by = advance(by, dy, k - kb);
+    kb = k;
+  }
+  // The position of step k (k >= kb with ACC).
+  __device__ float px(int k) const { return ACC ? __fadd_rn(advance(bx, dx, k - kb), x0) : pos(x0, dx, k); }
+  __device__ float py(int k) const { return ACC ? __fadd_rn(advance(by, dy, k - kb), y0) : pos(y0, dy, k); }
+};
 
 // The byte at an in-range pixel.
 __device__ __forceinline__ uint32_t pixel(const uint8_t* __restrict__ mask, int W, int cx, int cy) {
   return __ldg(mask + (int64_t)cy * W + cx);
 }
 
-// Step k of ray r: sets `in` (in the plane) and returns the byte at its
-// saturating-cast pixel (negatives clamp to 0), or 1 (neither black nor
+// The sample at (px, py): sets `in` (in the plane) and returns the byte at
+// its saturating-cast pixel (negatives clamp to 0), or 1 (neither black nor
 // white) past the plane's far edges.
-__device__ __forceinline__ uint32_t sample(const uint8_t* __restrict__ mask, int H, int W, const Ray& r, int k,
-                                           bool& in) {
-  const float px = pos(r.x0, r.dx, k);
-  const float py = pos(r.y0, r.dy, k);
+__device__ __forceinline__ uint32_t sample_at(const uint8_t* __restrict__ mask, int H, int W, float px, float py,
+                                              bool& in) {
   in = px >= 0.f && py >= 0.f && px < (float)W && py < (float)H;
   const int cx = (int)fmaxf(px, 0.f);
   const int cy = (int)fmaxf(py, 0.f);
   return (cx < W && cy < H) ? pixel(mask, W, cx, cy) : 1u;
 }
 
+// Step k of ray r (sample_at).
+template <bool ACC>
+__device__ __forceinline__ uint32_t sample(const uint8_t* __restrict__ mask, int H, int W, const Ray<ACC>& r, int k,
+                                           bool& in) {
+  return sample_at(mask, H, W, r.px(k), r.py(k), in);
+}
+
 enum : int { EV_NONE = 0, EV_GAP = 1, EV_OUT = 2, EV_ALIVE = 3 };
 
 // Steps k0 + S0 .. k0 + S1 - 1 of ray r into bits S0 .. S1 - 1 of the
 // words (white: in the plane and 255; in the plane; byte 0), every load
-// before any test.
-template <int S0, int S1>
-__device__ __forceinline__ void lane_word(const uint8_t* __restrict__ mask, int H, int W, const Ray& r, int k0,
+// before any test. With ACC the offsets are taken one addition a step.
+template <int S0, int S1, bool ACC>
+__device__ __forceinline__ void lane_word(const uint8_t* __restrict__ mask, int H, int W, const Ray<ACC>& r, int k0,
                                           uint32_t& white, uint32_t& inb, uint32_t& black) {
   uint32_t v[S1 - S0];
   bool in[S1 - S0];
+  if constexpr (ACC) {
+    float ox = advance(r.bx, r.dx, k0 + S0 - r.kb), oy = advance(r.by, r.dy, k0 + S0 - r.kb);
 #pragma unroll
-  for (int s = S0; s < S1; ++s) v[s - S0] = sample(mask, H, W, r, k0 + s, in[s - S0]);
+    for (int s = S0; s < S1; ++s) {
+      v[s - S0] = sample_at(mask, H, W, __fadd_rn(ox, r.x0), __fadd_rn(oy, r.y0), in[s - S0]);
+      ox = __fadd_rn(ox, r.dx);
+      oy = __fadd_rn(oy, r.dy);
+    }
+  } else {
+#pragma unroll
+    for (int s = S0; s < S1; ++s) v[s - S0] = sample(mask, H, W, r, k0 + s, in[s - S0]);
+  }
 #pragma unroll
   for (int s = S0; s < S1; ++s) {
     inb |= (uint32_t)in[s - S0] << s;
@@ -187,11 +270,25 @@ __device__ __forceinline__ int word_event(uint32_t white, uint32_t live, int out
 
 // The lane's end for an event of `kind` at step k (zero: the byte of that
 // step's saturating-cast pixel is 0).
-__device__ __forceinline__ void event_end(const Ray& r, int kind, int k, bool zero, int window, float& ex,
-                                          float& ey) {
+template <bool ACC>
+__device__ __forceinline__ void event_end(const uint8_t* __restrict__ mask, int W, const Ray<ACC>& r, int kind, int k,
+                                          bool zero, int window, float& ex, float& ey) {
   ex = r.x0;
   ey = r.y0;
-  if (kind == EV_GAP) {
+  if constexpr (ACC) {
+    // A gap ends at its first sample (in the plane), an exit at its step;
+    // then one step back if that sample's byte is 0.
+    if (kind == EV_GAP || kind == EV_OUT) {
+      if (kind == EV_GAP) k -= window - 1;
+      const float px = __fadd_rn(advance(0.f, r.dx, k), r.x0);
+      const float py = __fadd_rn(advance(0.f, r.dy, k), r.y0);
+      if (kind == EV_GAP) zero = pixel(mask, W, (int)px, (int)py) == 0u;
+      if (zero) {
+        ex = __fsub_rn(px, r.dx);
+        ey = __fsub_rn(py, r.dy);
+      }
+    }
+  } else if (kind == EV_GAP) {
     ex = pos(r.x0, r.dx, k - window);
     ey = pos(r.y0, r.dy, k - window);
   } else if (kind == EV_OUT && zero) {
@@ -200,7 +297,8 @@ __device__ __forceinline__ void event_end(const Ray& r, int kind, int k, bool ze
   }
 }
 
-__device__ __forceinline__ unsigned long long lane_key(const Ray& r, float ex, float ey, int a) {
+template <bool ACC>
+__device__ __forceinline__ unsigned long long lane_key(const Ray<ACC>& r, float ex, float ey, int a) {
   const float lx = __fsub_rn(r.x0, ex);
   const float ly = __fsub_rn(r.y0, ey);
   const float len = __fadd_rn(__fmul_rn(lx, lx), __fmul_rn(ly, ly));
@@ -211,7 +309,7 @@ __device__ __forceinline__ unsigned long long max_key(unsigned long long a, unsi
   return a > b ? a : b;
 }
 
-template <bool BATCH>
+template <bool BATCH, bool ACC>
 __global__ void __cluster_dims__(CLUSTER, 1, 1) __launch_bounds__(MAX_THREADS)
 ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, int W, const float* __restrict__ pts,
                  const float* __restrict__ cosv, const float* __restrict__ sinv, int N, int max_gap,
@@ -245,7 +343,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
 
   // -- a thread a lane for the first LANE_CHUNKS words --------------------------
   for (int a = a0 + threadIdx.x; a < a1; a += blockDim.x) {
-    const Ray r{x0, y0, cosv[a], sinv[a]};
+    const Ray<ACC> r{x0, y0, cosv[a], sinv[a]};
     int k0 = 0, carry = 0, kind = EV_NONE, j = 0;
     bool zero = false;
     for (int c = 0; c < LANE_CHUNKS && kind == EV_NONE; ++c, k0 += WORD) {
@@ -269,7 +367,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
       continue;
     }
     float ex, ey;
-    event_end(r, kind, k0 - WORD + j, zero, window, ex, ey);
+    event_end(mask, W, r, kind, k0 - WORD + j, zero, window, ex, ey);
     ex_row[a] = ex;
     ey_row[a] = ey;
     key = max_key(key, lane_key(r, ex, ey, a));
@@ -301,9 +399,10 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
     const int owner = __popc(__ballot_sync(FULL, lane > 0 && lane < CLUSTER && item >= start));
     const int slot = item - __shfl_sync(FULL, start, owner);
     const int a = *cluster.map_shared_rank(q_angle + slot, owner);
-    const Ray r{x0, y0, cosv[a], sinv[a]};
+    Ray<ACC> r{x0, y0, cosv[a], sinv[a]};
     int k0 = *cluster.map_shared_rank(q_k0 + slot, owner);
     int carry = *cluster.map_shared_rank(q_carry + slot, owner);
+    if constexpr (ACC) r.rebase(k0 + lane);
     int kind = EV_NONE, j = 0;
     bool zero = false;
     uint32_t v[WARP_WORDS];
@@ -311,6 +410,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
 #pragma unroll
     for (int w = 0; w < WARP_WORDS; ++w) v[w] = sample(mask, H, W, r, k0 + w * WORD + lane, in[w]);
     while (kind == EV_NONE) {
+      if constexpr (ACC) r.rebase(k0 + WARP_WORDS * WORD + lane);  // the next round's loads advance from its first step
       uint32_t vn[WARP_WORDS];
       bool inn[WARP_WORDS];
 #pragma unroll
@@ -349,7 +449,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
     }
     if (lane == 0) {
       float ex, ey;
-      event_end(r, kind, k0 - WORD + j, zero, window, ex, ey);
+      event_end(mask, W, r, kind, k0 - WORD + j, zero, window, ex, ey);
       ex_row[a] = ex;
       ey_row[a] = ey;
       key = max_key(key, lane_key(r, ex, ey, a));
@@ -374,7 +474,7 @@ ray_march_kernel(const uint8_t* __restrict__ mask, int64_t mask_stride, int H, i
 }
 
 // One launch on `stream`: B clusters of CLUSTER blocks.
-template <bool BATCH>
+template <bool BATCH, bool ACC>
 int launch(const void* mask, int64_t mask_stride, int H, int W, const void* pts, int B, const void* cosv,
            const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y, void* best_x, void* best_y,
            void* best_len, void* stream) {
@@ -383,7 +483,7 @@ int launch(const void* mask, int64_t mask_stride, int H, int W, const void* pts,
   if (per > MAX_PER_BLOCK || max_gap < 0 || k_total < 0 || B > 65535) return (int)cudaErrorInvalidValue;
   const int rounded = (per + 31) / 32 * 32;
   const int threads = rounded < MAX_THREADS ? rounded : MAX_THREADS;
-  ray_march_kernel<BATCH><<<dim3(CLUSTER, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  ray_march_kernel<BATCH, ACC><<<dim3(CLUSTER, B), threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(mask), mask_stride, H, W, static_cast<const float*>(pts),
       static_cast<const float*>(cosv), static_cast<const float*>(sinv), N, max_gap, k_total,
       static_cast<float*>(end_x), static_cast<float*>(end_y), static_cast<float*>(best_x),
@@ -399,8 +499,16 @@ int launch(const void* mask, int64_t mask_stride, int H, int W, const void* pts,
 extern "C" int smh_ray_march(const void* mask, int H, int W, const void* pts, int B, const void* cosv,
                              const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y,
                              void* best_x, void* best_y, void* best_len, void* stream) {
-  return launch<false>(mask, 0, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x, best_y,
-                       best_len, stream);
+  return launch<false, false>(mask, 0, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x, best_y,
+                              best_len, stream);
+}
+
+// smh_ray_march on the oracle's positions (the top of this file).
+extern "C" int smh_ray_march_acc(const void* mask, int H, int W, const void* pts, int B, const void* cosv,
+                                 const void* sinv, int N, int max_gap, int k_total, void* end_x, void* end_y,
+                                 void* best_x, void* best_y, void* best_len, void* stream) {
+  return launch<false, true>(mask, 0, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x, best_y,
+                             best_len, stream);
 }
 
 // smh_ray_march over B masks, one per seed: seed b's u8 [H, W] mask starts
@@ -409,6 +517,6 @@ extern "C" int smh_ray_march_masks(const void* mask, int64_t mask_stride, int H,
                                    const void* cosv, const void* sinv, int N, int max_gap, int k_total, void* end_x,
                                    void* end_y, void* best_x, void* best_y, void* best_len, void* stream) {
   if (mask_stride < (int64_t)H * W) return (int)cudaErrorInvalidValue;
-  return launch<true>(mask, mask_stride, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x,
-                      best_y, best_len, stream);
+  return launch<true, false>(mask, mask_stride, H, W, pts, B, cosv, sinv, N, max_gap, k_total, end_x, end_y, best_x,
+                             best_y, best_len, stream);
 }

@@ -19,6 +19,15 @@ keeps the last angle with the largest squared length.
   max across a cluster of blocks; a batch of masks is the same launch with
   a mask stride). Both sample pos(k) = start + k * d with
   two roundings (no FMA), so their ends and lengths are bit-equal.
+* With accumulate=True both take the oracle's positions instead (upstream
+  vision-cpu/src/lib.rs:387-449 and its GPU twin): the offset grows by d
+  one rounded addition a step (`x_off += dx`) and pos(k) = offset + start,
+  and a ray that ends on a gap ends one step before the gap's first sample,
+  pos(s) - d, if that sample's byte is 0, else at its start (for max_gap
+  >= 1; at 0 the oracle restores a gap start it never saved). Over a few
+  hundred steps the two positions part by up to ~1e-3 px, enough to move a
+  sample across a pixel edge and a line's end by a step; the live engine
+  (`march_seeds`) marches this way, so its lines are the oracle's.
 
 Both read one theta table, built once on the host in f32 (`theta_tables`),
 so the two never see different `cos`/`sin` roundings.
@@ -95,10 +104,22 @@ def step_bound(h: int, w: int, max_gap: int, max_len: float | None = None) -> in
 # ---------------------------------------------------------------------------
 
 
-def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
+def accumulated(d: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 [N, n]: entry (a, k) is 0 plus d[a] added k times, each addition
+    rounded once, in order (the oracle's `x_off += dx`)."""
+    out = torch.empty((n, d.numel()), dtype=F32, device=d.device)
+    off = torch.zeros_like(d)
+    for k in range(n):
+        out[k] = off
+        off = off + d
+    return out.t()
+
+
+def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t, accumulate: bool = False):
     """Plain twin of the lane kernel: u8 mask [h, w] (every seed's) or
     [B, h, w] (seed b's mask b), f32 seeds [B, 2] -> (end_x, end_y) f32
-    [B, N]. Seeds lie inside the plane."""
+    [B, N]. Seeds lie inside the plane. accumulate: the oracle's positions
+    and gap ends (the module's docstring)."""
     h, w = mask.shape[-2:]
     bsz = pts.shape[0]
     n = cos_t.numel()
@@ -120,12 +141,23 @@ def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
     end_x = x0.expand(bsz, n).clone()
     end_y = y0.expand(bsz, n).clone()
     chunk = max(1, min(SPAN, _PLAIN_BLOCK // max(bsz * n, 1)))
+    if accumulate:
+        off_x, off_y = accumulated(cos_t, k_total + 1), accumulated(sin_t, k_total + 1)
+        lane = torch.arange(n, device=dev)[None, :]
+
+        def at(off, x, k):  # the position of step k (i64 [B, N], clamped in range) of each lane
+            return x + off[lane, k.clamp(0, k_total)]
+
     k0 = 0
     while k0 < k_total:
         kspan = min(chunk, k_total - k0)
-        kf = torch.arange(k0, k0 + kspan, dtype=F32, device=dev)
-        px = x0[:, :, None] + dx[:, :, None] * kf  # two roundings, as the kernel
-        py = y0[:, :, None] + dy[:, :, None] * kf
+        if accumulate:
+            px = x0[:, :, None] + off_x[None, :, k0 : k0 + kspan]  # one rounding, as the oracle
+            py = y0[:, :, None] + off_y[None, :, k0 : k0 + kspan]
+        else:
+            kf = torch.arange(k0, k0 + kspan, dtype=F32, device=dev)
+            px = x0[:, :, None] + dx[:, :, None] * kf  # two roundings, as the kernel
+            py = y0[:, :, None] + dy[:, :, None] * kf
         inb = (px >= 0) & (py >= 0) & (px < w) & (py < h)
         xi = px.to(I32).clamp(0, w - 1)
         yi = py.to(I32).clamp(0, h - 1)
@@ -142,12 +174,21 @@ def march_plain(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
         abort_any = ka_rel < kspan
         oob_any = ko_rel < kspan
 
-        ks_end = (k0 + ka_rel - window).to(F32)
-        abort_x = x0 + dx * ks_end
-        abort_y = y0 + dy * ks_end
-        kof = (k0 + ko_rel).to(F32)
-        fx = x0 + dx * kof
-        fy = y0 + dy * kof
+        if accumulate:
+            # One step before the gap's first sample, if its byte is 0.
+            ks = k0 + ka_rel - max_gap
+            gx, gy = at(off_x, x0, ks), at(off_y, y0, ks)
+            gpix = flat[base2 + gy.to(I32).clamp(0, h - 1).to(I64) * w + gx.to(I32).clamp(0, w - 1)]
+            abort_x = torch.where(gpix == 0, gx - dx, x0)
+            abort_y = torch.where(gpix == 0, gy - dy, y0)
+            fx, fy = at(off_x, x0, k0 + ko_rel), at(off_y, y0, k0 + ko_rel)
+        else:
+            ks_end = (k0 + ka_rel - window).to(F32)
+            abort_x = x0 + dx * ks_end
+            abort_y = y0 + dy * ks_end
+            kof = (k0 + ko_rel).to(F32)
+            fx = x0 + dx * kof
+            fy = y0 + dy * kof
         cxi = fx.clamp(min=0).to(I32)
         cyi = fy.clamp(min=0).to(I32)
         final_inb = (cxi < w) & (cyi < h)
@@ -190,11 +231,19 @@ def finalize_plain(pts, end_x, end_y):
 # ---------------------------------------------------------------------------
 
 
-def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
+def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t, accumulate: bool = False):
     """u8 mask [h, w] (every seed's) or [B, h, w] (seed b's mask b), f32
     seeds [B, 2] (x, y) inside the plane, theta table f32 [N] x2 ->
     (end_x, end_y f32 [B, N], best_x, best_y, best_len f32 [B]). The plain
-    version on the CPU; on a CUDA device the kernel, one launch either way."""
+    version on the CPU; on a CUDA device the kernel, one launch either way.
+    accumulate: the oracle's positions (one mask only on a CUDA device)."""
+    end_x, end_y, best = _ray_march(mask, pts, max_gap, k_total, cos_t, sin_t, accumulate)
+    return end_x, end_y, best[0], best[1], best[2]
+
+
+def _ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t, accumulate: bool = False):
+    """ray_march with the winners as one f32 [3, B] tensor (x, y, squared
+    length), which one copy brings to the host."""
     tensors = (mask, pts, cos_t, sin_t)
     dev = mask.device
     if any(t.device != dev for t in tensors):
@@ -210,8 +259,8 @@ def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
     if max_gap < 0 or k_total < 0:
         raise ValueError(f"max_gap {max_gap} and k_total {k_total} must be >= 0")
     if dev.type == "cpu":
-        end_x, end_y = march_plain(mask, pts, max_gap, k_total, cos_t, sin_t)
-        return (end_x, end_y, *finalize_plain(pts, end_x, end_y))
+        end_x, end_y = march_plain(mask, pts, max_gap, k_total, cos_t, sin_t, accumulate)
+        return end_x, end_y, torch.stack(finalize_plain(pts, end_x, end_y))
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     mask, pts, cos_t, sin_t = (t.contiguous() for t in tensors)
@@ -225,13 +274,17 @@ def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
             end_x.data_ptr(), end_y.data_ptr(), best[0].data_ptr(), best[1].data_ptr(), best[2].data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
-        if mask.dim() == 3:
+        if accumulate:
+            if mask.dim() == 3:
+                raise ValueError("the accumulated march takes one mask")
+            name, code = "smh_ray_march_acc", lib.smh_ray_march_acc(mask.data_ptr(), *args)
+        elif mask.dim() == 3:
             name, code = "smh_ray_march_masks", lib.smh_ray_march_masks(mask.data_ptr(), h * w, *args)
         else:
             name, code = "smh_ray_march", lib.smh_ray_march(mask.data_ptr(), *args)
     _build.check(code, name)
     kernels.LAUNCHES["ray_march"] += 1
-    return end_x, end_y, best[0], best[1], best[2]
+    return end_x, end_y, best
 
 
 # ---------------------------------------------------------------------------
@@ -239,15 +292,15 @@ def ray_march(mask, pts, max_gap: int, k_total: int, cos_t, sin_t):
 # ---------------------------------------------------------------------------
 
 
-def find_longest_lines_batch(
+def march_seeds(
     mask_dev: torch.Tensor, pts: list[Point], max_gap: float, max_len: float | None = None
-) -> list[tuple[Line, float]]:
-    """March a batch of seeds over the device mask; (Line, length_sqr) per
-    seed, in order. max_len bounds every line from these seeds (the mask
-    bbox diagonal): the march then stops at the span-rounded step bound
-    past max_len + max_gap + 2, as the JAX march does."""
-    if not pts:
-        return []
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Upload a batch of seeds (padded to a power of two) and queue their
+    march over the device mask, one copy and one launch, on the oracle's
+    positions (accumulate): -> (the seeds on the device, the winners f32
+    [3, B] on the device). max_len bounds every line from these seeds (the
+    mask bbox diagonal): the march then stops at the span-rounded step
+    bound past max_len + max_gap + 2, where every ray has ended."""
     h, w = mask_dev.shape
     mg = int(max_gap)
     pts_np = np.zeros((_bucket(len(pts)), 2), dtype=np.float32)
@@ -255,12 +308,28 @@ def find_longest_lines_batch(
         pts_np[i] = (p.x, p.y)
     cos_t, sin_t = theta_tables(mask_dev.device)
     pts_t = torch.from_numpy(pts_np).to(mask_dev.device)
-    _, _, bx, by, bl = ray_march(mask_dev, pts_t, mg, step_bound(h, w, mg, max_len), cos_t, sin_t)
-    bx, by, bl = (t.cpu().numpy() for t in (bx, by, bl))
+    _, _, best = _ray_march(mask_dev, pts_t, mg, step_bound(h, w, mg, max_len), cos_t, sin_t, accumulate=True)
+    return pts_t, best
+
+
+def lines_of(pts: list[Point], best: np.ndarray) -> list[tuple[Line, float]]:
+    """(Line, length_sqr) per seed, in order, from march_seeds' winners on the host."""
+    bx, by, bl = best
     return [
         (Line(Point(float(p.x), float(p.y)), Point(float(bx[i]), float(by[i]))), float(bl[i]))
         for i, p in enumerate(pts)
     ]
+
+
+def find_longest_lines_batch(
+    mask_dev: torch.Tensor, pts: list[Point], max_gap: float, max_len: float | None = None
+) -> list[tuple[Line, float]]:
+    """March a batch of seeds over the device mask (march_seeds); (Line,
+    length_sqr) per seed, in order."""
+    if not pts:
+        return []
+    _, best = march_seeds(mask_dev, pts, max_gap, max_len)
+    return lines_of(pts, best.cpu().numpy())
 
 
 def find_longest_line(

@@ -3,7 +3,10 @@
 Counterpart of /root/reference/src/settings.rs:30-142 (same keys, same
 save-on-set behaviour; `paused` is deliberately not persisted, settings.rs:5).
 `hardware_acceleration` selects the TPU backend over the numpy reference,
-mirroring the reference's CPU/GPU toggle.
+mirroring the reference's CPU/GPU toggle. `lsd_engine` picks the CUDA
+backend's line search: "native" (the C++ march on the host, the default)
+or "cuda" (the host seed scan over the device ray march, kernel 4: upstream's
+GPU `find_longest_line`, vision-gpu/src/lib.rs:489-538).
 """
 
 from __future__ import annotations
@@ -20,7 +23,10 @@ _DEFAULTS: dict[str, Any] = {
     "grayscale_map": True,
     "squad_dir": None,
     "squad_pak_aes": None,
+    "lsd_engine": "native",
 }
+
+LSD_ENGINES = ("native", "cuda")
 
 
 class Settings:
@@ -44,7 +50,7 @@ class Settings:
             return
         with self._lock:
             for k in _DEFAULTS:
-                if k in data:
+                if k in data and (k != "lsd_engine" or data[k] in LSD_ENGINES):
                     self._values[k] = data[k]
 
     def save(self) -> None:
@@ -66,6 +72,8 @@ class Settings:
     def set(self, key: str, value: Any, save: bool = True) -> None:
         if key not in _DEFAULTS:
             raise KeyError(key)
+        if key == "lsd_engine" and value not in LSD_ENGINES:
+            raise ValueError(f"lsd_engine must be one of {LSD_ENGINES}, not {value!r}")
         with self._lock:
             self._values[key] = value
         if save and self._autosave:
@@ -80,6 +88,9 @@ class Settings:
 
     def grayscale_map(self) -> bool:
         return bool(self.get("grayscale_map"))
+
+    def lsd_engine(self) -> str:
+        return self.get("lsd_engine")
 
     def squad_dir(self) -> Optional[str]:
         return self.get("squad_dir")

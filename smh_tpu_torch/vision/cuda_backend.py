@@ -314,8 +314,11 @@ class CudaBackend:
             "device_scales_frames": 0,
             "device_scales_fallbacks": 0,
             "d2h_bytes": 0,  # every device -> host copy, the hostpack's at its dispatch
+            "lsd_marches": 0,  # the cuda engine's seed batches launched
+            "lsd_seeds_marched": 0,  # their seeds, speculative ones included
         }
-        self._d2h_lock = threading.Lock()  # d2h_bytes grows on the submit, consume and branch threads
+        # h2d_bytes and d2h_bytes grow on the submit, consume and branch threads.
+        self._stats_lock = threading.Lock()
         # Delta upload chain (SMH_DELTA: auto|0|1; 1 forces it even for tiny
         # frames, 0 turns it off), owned by the submit half:
         #   _resident      device flat ROI buffer of the LAST DISPATCH (a
@@ -665,7 +668,7 @@ class CudaBackend:
         # Start the hostpack's D2H now, into pinned memory behind an event:
         # crop_to_map waits on this frame's event only.
         pack = out["hostpack"]
-        self._count_d2h(pack)
+        self._count(d2h_bytes=pack.nbytes)
         if self.device.type == "cuda":
             host = torch.empty(pack.shape, dtype=pack.dtype, pin_memory=True)
             host.copy_(pack, non_blocking=True)
@@ -675,13 +678,15 @@ class CudaBackend:
         else:
             self._fetch = (pack, None)
 
-    def _count_d2h(self, t: torch.Tensor) -> None:
-        with self._d2h_lock:
-            self.stats["d2h_bytes"] += t.nbytes
+    def _count(self, **deltas: int) -> None:
+        """Add to counters that more than one thread grows."""
+        with self._stats_lock:
+            for k, n in deltas.items():
+                self.stats[k] += n
 
     def _d2h(self, t: torch.Tensor) -> np.ndarray:
         """A device tensor copied to the host, its bytes counted."""
-        self._count_d2h(t)
+        self._count(d2h_bytes=t.nbytes)
         return t.cpu().numpy()
 
     def _upload_and_pass(self, pending: tuple, kw: dict) -> dict:
@@ -705,7 +710,7 @@ class CudaBackend:
             out = ops_pipeline.analyze_packed_flat(self._resident, **kw)
             self._retire_mirror(recyclable_next=False)
             self.stats["full_uploads"] += 1
-        self.stats["h2d_bytes"] += nbytes
+        self._count(h2d_bytes=nbytes)
         return out
 
     def _drop_chain(self) -> None:
@@ -1079,12 +1084,20 @@ class CudaBackend:
         return self._results["lsd_mask"]
 
     def find_longest_line(self, mask, pt: Point, max_gap: float) -> tuple[Line, float]:
-        return ops_lsd.find_longest_line(self._lsd_mask_dev(), pt, max_gap, max_len=self._march_max_len)
+        return self._find_longest_lines_batch(mask, [pt], max_gap)[0]
 
     def _find_longest_lines_batch(self, mask, pts: list, max_gap: float):
-        return ops_lsd.find_longest_lines_batch(
-            self._lsd_mask_dev(), pts, max_gap, max_len=self._march_max_len
-        )
+        """One seed batch of the cuda engine: the seeds' upload and the
+        launch (`lsd.march`, after the frame's device mask on the first
+        batch), then the wait for the winners' copy (`lsd.march_wait`)."""
+        if not pts:
+            return []
+        with span("lsd.march"):
+            seeds, best = ops_lsd.march_seeds(self._lsd_mask_dev(), pts, max_gap, max_len=self._march_max_len)
+        with span("lsd.march_wait", WAIT):
+            best = self._d2h(best)
+        self._count(h2d_bytes=seeds.nbytes, lsd_marches=1, lsd_seeds_marched=len(pts))
+        return ops_lsd.lines_of(pts, best)
 
     def find_marker_lines(self, max_gap: int) -> list:
         if self._lsd_crop_host is None:
@@ -1098,15 +1111,16 @@ class CudaBackend:
             return native.find_lines(crop, max_gap, full_shape=(g.map_h, g.map_w), offset=(ox, oy))
         # The device march samples the full device mask, so the seed scan
         # runs in map coordinates over the crop pasted into a full canvas.
-        if crop.shape == (g.map_h, g.map_w):
-            canvas = crop
-        else:
-            canvas = np.zeros((g.map_h, g.map_w), dtype=np.uint8)
-            canvas[oy : oy + crop.shape[0], ox : ox + crop.shape[1]] = crop
-        return lsd.find_lines(
-            canvas, max_gap, self.find_longest_line,
-            find_longest_lines_batch=self._find_longest_lines_batch,
-        )
+        with span("lsd.scan"):
+            if crop.shape == (g.map_h, g.map_w):
+                canvas = crop
+            else:
+                canvas = np.zeros((g.map_h, g.map_w), dtype=np.uint8)
+                canvas[oy : oy + crop.shape[0], ox : ox + crop.shape[1]] = crop
+            return lsd.find_lines(
+                canvas, max_gap, self.find_longest_line,
+                find_longest_lines_batch=self._find_longest_lines_batch,
+            )
 
     # -- debug ------------------------------------------------------------------
 

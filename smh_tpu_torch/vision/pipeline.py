@@ -82,9 +82,9 @@ class VisionResults:
         return self._map
 
 
-def make_backend(name: str, device="cuda"):
+def make_backend(name: str, device="cuda", lsd_engine: str = "native"):
     if name == "cuda":
-        return CudaBackend(device)
+        return CudaBackend(device, lsd_engine=lsd_engine)
     if name == "numpy":
         return ReferenceBackend()
     raise ValueError(f"unknown backend {name!r}")
@@ -92,8 +92,9 @@ def make_backend(name: str, device="cuda"):
 
 class BackendDelegate:
     """Runtime backend switch (hardware.rs:14-45): hardware_acceleration
-    toggles cuda<->numpy per frame. CudaBackend runs on `device`; its
-    failures propagate."""
+    toggles cuda<->numpy per frame, and the CUDA backend's line search
+    follows the `lsd_engine` setting, re-checked each frame as well.
+    CudaBackend runs on `device`; its failures propagate."""
 
     def __init__(self, settings: Settings, device="cuda") -> None:
         self._settings = settings
@@ -106,8 +107,12 @@ class BackendDelegate:
 
     def current(self):
         want = "cuda" if self._settings.hardware_acceleration() else "numpy"
+        engine = self._settings.lsd_engine()
         if self._backend is None or self._backend.name != want:
-            self._backend = make_backend(want, self._device)
+            self._backend = make_backend(want, self._device, lsd_engine=engine)
+        elif want == "cuda" and self._backend.lsd_engine != engine:
+            # Frames already submitted keep the engine their view was taken with.
+            self._backend.lsd_engine = engine
         return self._backend
 
 

@@ -26,6 +26,10 @@ from test_torch_reference import _reference_native  # noqa: F401  (module-scoped
 
 torch.set_num_threads(1)
 
+# CudaBackend's counters that smh_tpu's TpuBackend has no counterpart of:
+# every D2H copy's bytes, and the cuda line-search engine's marches.
+PORT_COUNTERS = {"d2h_bytes", "lsd_marches", "lsd_seeds_marched"}
+
 
 W, H = 1280, 720
 
@@ -88,7 +92,7 @@ def test_port_matches_tpu_backend_and_oracle(states):
     assert be._dispatch_flags[3] == "device" and be._dispatch_flags[4] is not None  # sparse
     assert be.stats["device_scales_frames"] == 1 and be.stats["device_scales_fallbacks"] == 0
     assert be.stats["scalespack_fetches"] == 0
-    assert set(be.stats) - {"d2h_bytes"} == set(ref.delegate.backend.stats)  # d2h_bytes: the port's own counter
+    assert set(be.stats) - PORT_COUNTERS == set(ref.delegate.backend.stats)
     np.testing.assert_array_equal(res.map, ref.process(JFrame(frame, 96)).map)
 
     oracle = tpipeline.VisionState(settings=_settings(hw=False), ocr_engine=SmhOcrEngine(), device="cpu")
@@ -158,7 +162,7 @@ def test_engine_without_device_read_uses_the_scalespack(monkeypatch):
             bp, br = port.delegate.backend, ref.delegate.backend
             assert bp._dispatch_flags[3] == br._dispatch_flags[6]
             assert bp._dispatch_flags.band == br._dispatch_flags[7]
-            assert {k: v for k, v in bp.stats.items() if k != "d2h_bytes"} == br.stats  # the port's own counter
+            assert {k: v for k, v in bp.stats.items() if k not in PORT_COUNTERS} == br.stats
             inlines.append(bp._dispatch_flags[3])
             bands.append(bp._dispatch_flags.band)
         assert inlines == ["binary"] * (cb._INLINE_STABLE_AFTER + 1) + ["none"]

@@ -14,6 +14,7 @@ from smh_tpu_torch import consts as C, testing
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pixmath
 from smh_tpu_torch.vision.reference import DebugView
+from test_torch_backend import PORT_COUNTERS
 from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
@@ -71,7 +72,7 @@ def test_debug_views_match_tpu_backend(engine):
             assert marker.any()
         else:
             np.testing.assert_array_equal(got, want, err_msg=view.name)
-    assert {k: v for k, v in port.stats.items() if k != "d2h_bytes"} == ref.stats  # d2h_bytes: the port's own
+    assert {k: v for k, v in port.stats.items() if k not in PORT_COUNTERS} == ref.stats
 
 
 def test_views_without_debug_match_tpu_backend():

@@ -53,7 +53,8 @@ JPKG, TPKG = ROOT / "smh_tpu", ROOT / "smh_tpu_torch"
 COPIES = {
     "consts.py": set(),
     "geometry.py": set(),
-    "settings.py": set(),
+    # The lsd_engine setting: the CUDA backend's line search, "native" or "cuda".
+    "settings.py": {"__doc__", "_DEFAULTS", "LSD_ENGINES", "Settings.load", "Settings.set", "Settings.lsd_engine"},
     "utils/__init__.py": set(),
     # The span recorder: every timeshare is also a record of a bounded ring
     # (spans, frame ids, SMH_TRACE, the Chrome trace writer).
@@ -141,8 +142,12 @@ COPIES = {
         "mask_bits_cases", "window_crop_cases", "ocr_band_cases",
     },
     # --device (the App, its worker and --warmup run on it), no compile cache;
-    # --trace-out writes the span recorder's ring at exit.
-    "app.py": {"__doc__", "App.__init__", "App._run_worker_feeder", "build_parser", "main"},
+    # --trace-out writes the span recorder's ring at exit; --lsd-engine and
+    # /api/settings' lsd_engine.
+    "app.py": {
+        "__doc__", "App.__init__", "App._run_worker_feeder", "App._api", "build_parser", "load_settings", "main",
+        "from .settings import Settings", "from .settings import LSD_ENGINES, Settings",
+    },
 }
 DATA_FILES = ["consts.toml", "native/smhnative.cpp", "native/smhtess.cpp", "web/www/index.html"]
 # The port's own modules: the device half and the package's entry points.

@@ -22,6 +22,7 @@ from smh_tpu_torch.geometry import Point
 from smh_tpu_torch.ops import lsd as tlsd
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pixmath
+from smh_tpu_torch.vision import reference as oracle
 from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
@@ -144,23 +145,58 @@ def _lane_loop(mask, x0, y0, dx, dy, max_gap, k_total):
     return x0, y0
 
 
-@pytest.mark.parametrize("max_gap,max_len", [(MAX_GAP, None), (MAX_GAP, 60.0), (0, None), (3, 40.0)])
-def test_kernel_lane_loop_equals_the_plain_version(max_gap, max_len):
+def _oracle_lane(mask, x0, y0, dx, dy, max_gap, k_total):
+    """The oracle's lane (vision/reference.py's find_longest_line, one
+    angle), stopped after k_total steps with end = start as the kernel is:
+    the offset accumulated one rounded addition a step, a gap's end its
+    first sample, then the final check one step back onto a black pixel."""
+    h, w = mask.shape
+    f = np.float32
+    x, y, ox, oy = f(x0), f(y0), f(0), f(0)
+    gap, gx, gy = 0, f(0), f(0)
+    for _ in range(k_total):
+        if not (x >= 0 and y >= 0 and x < f(w) and y < f(h)):
+            break
+        if mask[int(y), int(x)] == 255:
+            gap = 0
+        elif gap >= max_gap:
+            x, y = gx, gy
+            break
+        elif gap == 0:
+            gap, gx, gy = 1, x, y
+        else:
+            gap += 1
+        ox, oy = f(ox + dx), f(oy + dy)
+        x, y = f(ox + f(x0)), f(oy + f(y0))
+    else:
+        return f(x0), f(y0)
+    cxi, cyi = int(max(x, f(0))), int(max(y, f(0)))
+    if cxi < w and cyi < h and mask[cyi, cxi] == 0:
+        return f(x - dx), f(y - dy)
+    return f(x0), f(y0)
+
+
+@pytest.mark.parametrize("max_gap,max_len,accumulate", [
+    (MAX_GAP, None, False), (MAX_GAP, 60.0, False), (0, None, False), (3, 40.0, False),
+    (MAX_GAP, None, True), (MAX_GAP, 60.0, True), (1, None, True), (3, 40.0, True)])
+def test_kernel_lane_loop_equals_the_plain_version(max_gap, max_len, accumulate):
     """The lane's sequential state machine, stated in numpy, gives the
     plain span formulation's ends bit for bit on a sample of lanes (every
     7th angle), max_gap 0 and step bounds that cut live lanes included;
-    the reduction's rule (largest length, ties to the higher angle) equals
-    finalize_plain's."""
+    with accumulate the oracle's loop does, from max_gap 1 (at 0 the oracle
+    restores a gap start it never saved); the reduction's rule (largest
+    length, ties to the higher angle) equals finalize_plain's."""
     mask = _mask(5)
     pts = _seeds(mask, 3, seed=7)
     cos_t, sin_t = tlsd.theta_tables("cpu")
     k_total = tlsd.step_bound(*mask.shape, max_gap, max_len)
     ex, ey, bx, by, bl = (t.numpy() for t in tlsd.ray_march(
-        torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t))
+        torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t, accumulate=accumulate))
     c, s = cos_t.numpy(), sin_t.numpy()
+    lane = _oracle_lane if accumulate else _lane_loop
     for i, (x0, y0) in enumerate(pts):
         for a in range(0, tlsd.N_ANGLES, 7):
-            got = _lane_loop(mask, x0, y0, c[a], s[a], max_gap, k_total)
+            got = lane(mask, x0, y0, c[a], s[a], max_gap, k_total)
             assert (got[0], got[1]) == (ex[i, a], ey[i, a]), (i, a)
         lx = np.float32(x0) - ex[i]
         ly = np.float32(y0) - ey[i]
@@ -169,14 +205,15 @@ def test_kernel_lane_loop_equals_the_plain_version(max_gap, max_len):
         assert (bx[i], by[i], bl[i]) == (ex[i, best], ey[i, best], lengths[best])
 
 
-def test_plain_chunking_changes_nothing(monkeypatch):
+@pytest.mark.parametrize("accumulate", [False, True])
+def test_plain_chunking_changes_nothing(monkeypatch, accumulate):
     mask = _mask(2)
     pts = torch.from_numpy(_seeds(mask, 3, seed=2))
     cos_t, sin_t = tlsd.theta_tables("cpu")
     k_total = tlsd.step_bound(*mask.shape, MAX_GAP, None)
-    want = tlsd.ray_march(torch.from_numpy(mask), pts, MAX_GAP, k_total, cos_t, sin_t)
+    want = tlsd.ray_march(torch.from_numpy(mask), pts, MAX_GAP, k_total, cos_t, sin_t, accumulate=accumulate)
     monkeypatch.setattr(tlsd, "_PLAIN_BLOCK", 3 * tlsd.N_ANGLES * 5)  # 5-step chunks < max_gap
-    got = tlsd.ray_march(torch.from_numpy(mask), pts, MAX_GAP, k_total, cos_t, sin_t)
+    got = tlsd.ray_march(torch.from_numpy(mask), pts, MAX_GAP, k_total, cos_t, sin_t, accumulate=accumulate)
     for g, w in zip(got, want, strict=True):
         assert torch.equal(g, w)
 
@@ -231,14 +268,26 @@ def _word_event(white, inb, valid, window, carry):
     return kind, j, carry
 
 
-def _word_march(mask, pts, max_gap, k_total, cos_t, sin_t):
+def _accumulated(d, n):
+    """[N, n] f32: d added k times in column k, each addition rounded."""
+    out = np.zeros((d.size, n), np.float32)
+    for k in range(1, n):
+        out[:, k] = out[:, k - 1] + d
+    return out
+
+
+def _word_march(mask, pts, max_gap, k_total, cos_t, sin_t, accumulate=False):
     """The kernel's march over all (seed, angle) lanes: words of WORD steps,
     every sample of a word taken before any test, the word's first event in
     step order, the run of non-white samples carried to the next word as a
     count. Its thread and warp phases (LANE_CHUNKS, WARP_WORDS) take the
-    same words in the same order, so they do not appear here."""
+    same words in the same order, so they do not appear here. accumulate:
+    the oracle's positions and gap ends (smh_ray_march_acc)."""
     f32 = np.float32
     h, w = mask.shape
+    if accumulate:
+        off_x, off_y = _accumulated(cos_t, k_total + WORD + 1), _accumulated(sin_t, k_total + WORD + 1)
+        lanes = np.arange(cos_t.size)[None, :]
     window = max_gap + 1
     x0, y0 = pts[:, 0:1, None], pts[:, 1:2, None]  # [B, 1, 1]
     dx, dy = cos_t[None, :, None], sin_t[None, :, None]  # [1, N, 1]
@@ -251,8 +300,12 @@ def _word_march(mask, pts, max_gap, k_total, cos_t, sin_t):
     k0 = 0
     while k0 < k_total and not done.all():
         k = np.arange(k0, k0 + WORD).astype(f32)
-        px = x0 + dx * k  # f32: each op rounds once
-        py = y0 + dy * k
+        if accumulate:
+            px = x0 + off_x[None, :, k0 : k0 + WORD]  # f32: one rounding
+            py = y0 + off_y[None, :, k0 : k0 + WORD]
+        else:
+            px = x0 + dx * k  # f32: each op rounds once
+            py = y0 + dy * k
         inb = (px >= 0) & (py >= 0) & (px < f32(w)) & (py < f32(h))
         cx = np.maximum(px, f32(0)).astype(np.int64)
         cy = np.maximum(py, f32(0)).astype(np.int64)
@@ -263,12 +316,22 @@ def _word_march(mask, pts, max_gap, k_total, cos_t, sin_t):
         act = ~done
         ks = (k0 + j).astype(np.int64)
         gap = act & (kind == 1)
-        gx = pts[:, 0:1] + cos_t[None, :] * (ks - window).astype(f32)
-        gy = pts[:, 1:2] + sin_t[None, :] * (ks - window).astype(f32)
         zero = ((black >> np.minimum(j, WORD - 1).astype(np.uint64)) & np.uint64(1)) == 1
+        if accumulate:  # the gap's first sample, one step back if its byte is 0
+            first = np.clip(ks - max_gap, 0, k_total)
+            fx, fy = pts[:, 0:1] + off_x[lanes, first], pts[:, 1:2] + off_y[lanes, first]
+            fb = mask[np.clip(fy, 0, h - 1).astype(np.int64), np.clip(fx, 0, w - 1).astype(np.int64)] == 0
+            gx = np.where(fb, fx - cos_t[None, :], pts[:, 0:1])
+            gy = np.where(fb, fy - sin_t[None, :], pts[:, 1:2])
+            kc = np.clip(ks, 0, k_total + WORD)
+            ox = (pts[:, 0:1] + off_x[lanes, kc]) - cos_t[None, :]
+            oy = (pts[:, 1:2] + off_y[lanes, kc]) - sin_t[None, :]
+        else:
+            gx = pts[:, 0:1] + cos_t[None, :] * (ks - window).astype(f32)
+            gy = pts[:, 1:2] + sin_t[None, :] * (ks - window).astype(f32)
+            ox = (pts[:, 0:1] + cos_t[None, :] * ks.astype(f32)) - cos_t[None, :]
+            oy = (pts[:, 1:2] + sin_t[None, :] * ks.astype(f32)) - sin_t[None, :]
         out = act & (kind == 2) & zero
-        ox = (pts[:, 0:1] + cos_t[None, :] * ks.astype(f32)) - cos_t[None, :]
-        oy = (pts[:, 1:2] + sin_t[None, :] * ks.astype(f32)) - sin_t[None, :]
         ex = np.where(gap, gx, np.where(out, ox, ex))
         ey = np.where(gap, gy, np.where(out, oy, ey))
         done |= act & (kind != 0)
@@ -295,27 +358,29 @@ def _edge_seeds(mask: np.ndarray, seed: int) -> np.ndarray:
     return np.concatenate([np.array(edge, np.float32), _seeds(mask, 3, seed)]).astype(np.float32)
 
 
-def _plain(mask, pts, max_gap, k_total):
+def _plain(mask, pts, max_gap, k_total, accumulate=False):
     cos_t, sin_t = tlsd.theta_tables("cpu")
-    ex, ey = tlsd.march_plain(torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t)
+    ex, ey = tlsd.march_plain(torch.from_numpy(mask), torch.from_numpy(pts), max_gap, k_total, cos_t, sin_t,
+                              accumulate=accumulate)
     return ex.numpy(), ey.numpy()
 
 
+@pytest.mark.parametrize("accumulate", [False, True])
 @pytest.mark.parametrize("max_gap", [0, 15, 31, 47])
 @pytest.mark.parametrize("density", [0.05, 0.45])
-def test_word_march_equals_the_plain_version(max_gap, density):
+def test_word_march_equals_the_plain_version(max_gap, density, accumulate):
     """The kernel's word-at-a-time march, restated in numpy, gives
     march_plain's ends bit for bit on every lane: seeds on the plane's
     edges, runs carried across word seams, rays that leave the plane
     mid-word, and bounds that leave lanes alive (k_total 0, inside a word,
-    on a seam, and the span-rounded bound)."""
+    on a seam, and the span-rounded bound); on either kind of positions."""
     mask = _edge_mask(max_gap + int(100 * density), density)
     pts = _edge_seeds(mask, max_gap)
     cos_t, sin_t = (t.numpy() for t in tlsd.theta_tables("cpu"))
     ends = {}
     for k_total in (tlsd.step_bound(*mask.shape, max_gap, None), 45, 2 * WORD, 0):
-        ends[k_total] = _word_march(mask, pts, max_gap, k_total, cos_t, sin_t)
-        want = _plain(mask, pts, max_gap, k_total)
+        ends[k_total] = _word_march(mask, pts, max_gap, k_total, cos_t, sin_t, accumulate)
+        want = _plain(mask, pts, max_gap, k_total, accumulate)
         for g, w_ in zip(ends[k_total], want):
             np.testing.assert_array_equal(g, w_, err_msg=f"k_total {k_total}")
     for k_total, (ex, ey) in ends.items():
@@ -346,6 +411,84 @@ def test_word_march_gaps_that_close_on_a_word_seam(max_gap):
     completes = np.array(runs) + window  # the step that completes the gap on angle 0
     assert {int(c) % WORD for c in completes} == set(range(WORD))
     np.testing.assert_array_equal(got[0][:, 0], np.array(runs, np.float32))  # end = last white pixel
+
+
+def _advance(s, d, n):
+    """csrc/ray_march.cu's advance, restated in numpy over arrays of lanes:
+    s with d added n times, each addition rounded; three real additions a
+    binade, then a jump over the additions whose increment is constant."""
+    f = np.float32
+    s, d, n = np.broadcast_arrays(np.asarray(s, f), np.asarray(d, f), np.asarray(n, np.int64))
+    n = n.copy()
+    neg, a = d < 0, np.abs(d)
+    t = np.where(neg, -s, s)
+    live = (n > 0) & (d != 0)
+    while live.any():
+        ts = []
+        for _ in range(3):
+            t = np.where(live, t + a, t)
+            n = np.where(live, n - 1, n)
+            ts.append(t)
+            live = live & (n > 0)
+        t1, t2, t3 = ts
+        top = ((t1.view(np.int32) & 0x7F800000) + 0x00800000).astype(np.int32).view(f)
+        jump = live & (t3 < top)
+        with np.errstate(all="ignore"):
+            u = top * f(2.0**-24)
+            inc = t3 - t2
+            steps = np.where(jump, inc / u, 0).astype(np.int64)
+            room = np.where(jump, (top - t3) / u, 0).astype(np.int64)
+        live = live & ~(jump & (steps == 0))
+        m = np.where(jump & (steps > 0), np.minimum(n, room // np.maximum(steps, 1)), 0)
+        t = np.where(m > 0, t3 + m.astype(f) * inc, t)
+        n = n - m
+        live = live & (n > 0)
+    return np.where(d == 0, np.where(n > 0, s + d, s), np.where(neg, -t, t))
+
+
+@pytest.mark.parametrize("table", ["port", "oracle"])
+def test_advance_equals_one_rounded_addition_a_step(table):
+    """The kernel's jump over a binade's additions gives every lane's
+    offset bit for bit, from 0 and from any step, for both signs of every
+    cos and sin of a theta table (the port's, and the oracle's numpy f32
+    one), over the steps of a 4K map's march."""
+    if table == "port":
+        c, s_ = tlsd.theta_tables_np()
+    else:
+        theta = (np.arange(tlsd.N_ANGLES, dtype=np.float32) / np.float32(10.0)) * (
+            np.float32(np.pi) / np.float32(180.0))
+        c, s_ = np.cos(theta).astype(np.float32), np.sin(theta).astype(np.float32)
+    k_max = tlsd.step_bound(1644, 1972, MAX_GAP, None)
+    rng = np.random.default_rng(3)
+    for d in (c, s_):
+        seq = _accumulated(d, k_max + 1)  # [N, k_max + 1]
+        lanes = np.arange(d.size)
+        for k in list(range(0, 70)) + [int(v) for v in rng.integers(70, k_max + 1, 40)] + [k_max]:
+            np.testing.assert_array_equal(_advance(0.0, d, k), seq[:, k], err_msg=f"k {k}")
+        for _ in range(30):
+            kb = rng.integers(0, k_max // 2, d.size)
+            n = rng.integers(0, k_max - kb + 1)
+            np.testing.assert_array_equal(_advance(seq[lanes, kb], d, n), seq[lanes, kb + n])
+
+
+def test_accumulated_march_is_the_oracles():
+    """On the oracle's own theta table, the accumulated march's winner of
+    every seed (its end and squared length) is vision/reference.py's
+    find_longest_line's, bit for bit: line, speck and edge seeds, whole and
+    half-pixel positions, with the step bound of an unbounded march."""
+    theta = (np.arange(tlsd.N_ANGLES, dtype=np.float32) / np.float32(10.0)) * (
+        np.float32(np.pi) / np.float32(180.0))
+    cos_t, sin_t = (torch.from_numpy(v(theta).astype(np.float32)) for v in (np.cos, np.sin))
+    for seed in range(3):
+        mask = _mask(seed, 180, 260)
+        h, w = mask.shape
+        pts = np.concatenate([_seeds(mask, 6, seed) + np.float32(0.5 * seed),
+                              np.array([[0, 0], [w - 1, h - 1], [0, h / 2]], np.float32)]).astype(np.float32)
+        _, _, bx, by, bl = tlsd.ray_march(torch.from_numpy(mask), torch.from_numpy(pts), MAX_GAP,
+                                          tlsd.step_bound(h, w, MAX_GAP, None), cos_t, sin_t, accumulate=True)
+        for i, (x, y) in enumerate(pts):
+            line, length = oracle.find_longest_line(mask, Point(float(x), float(y)), float(MAX_GAP))
+            assert (float(bx[i]), float(by[i]), float(bl[i])) == (line.p1.x, line.p1.y, length), (seed, i)
 
 
 def test_u64_key_max_is_finalize_plains_winner():

@@ -33,6 +33,7 @@ from smh_tpu_torch.settings import Settings
 from smh_tpu_torch.squadex.capture import Frame
 from smh_tpu_torch.vision import cuda_backend as cb
 from smh_tpu_torch.vision import pipeline as tpipeline
+from test_torch_backend import PORT_COUNTERS
 from test_torch_reference import _reference_native  # noqa: F401  (module-scoped autouse fixture)
 
 torch.set_num_threads(1)
@@ -78,7 +79,7 @@ ADAPT_FIELDS = [f for f in cb._AdaptState.__slots__ if f not in ("ui_check", "ui
 def assert_same_state(port: cb.CudaBackend, ref: tb.TpuBackend) -> None:
     """Hostpack bytes, stats, every ladder field and the parsed sections."""
     np.testing.assert_array_equal(port._results["hostpack"].numpy(), np.asarray(ref._results["hostpack"]))
-    assert {k: v for k, v in port.stats.items() if k != "d2h_bytes"} == ref.stats  # d2h_bytes: the port's own
+    assert {k: v for k, v in port.stats.items() if k not in PORT_COUNTERS} == ref.stats
     for name in ADAPT_FIELDS:
         assert getattr(port._adapt, name) == getattr(ref._adapt, name), name
     f, rf = port._dispatch_flags, ref._dispatch_flags
