@@ -11,9 +11,13 @@ smh_tpu_torch's own entry points:
   app's 15 FPS). The warm-up runs uncapped; the cap holds from CAP_LEAD
   updates before the window opens, so no frame queued by the warm-up is in
   it. An update's latency runs from the loop taking its frame out of the
-  mailbox to `on_update` with its result.
+  mailbox to `on_update` with its result; what a player waits runs from
+  the screen's read, stamped when the benchmark's source is grabbed, to
+  the same update.
 - `video`: `BatchPipeline(batch).stream(depth=...)` over batches of the
-  cycle, as `tools/analyze_video` runs it.
+  cycle, as `tools/analyze_video` runs it. Its end-to-end metric is the
+  card's time a frame, its kernels' and copies', read from profiled slices
+  of the window in every run; the frames per second are per-layer.
 
 Set-up runs from the process's start to the first timed frame, less the
 drawing of the traffic: imports, the kernels' build (cached in the
@@ -49,7 +53,7 @@ WARM_LAPS = 2  # video: laps of the cycle before the window
 SETUP_TIMEOUT_S = 900  # the first run in a checkout builds the kernels
 DRAIN_S = 60  # a minute past the close for answers still due
 QUIET_S = 3.0  # no answer for this long ends the drain early
-SLICES, SLICE_S = 3, 2.0  # profiled slices of the traced window, each at the middle of its third
+SLICES, SLICE_S = 3, 2.0  # profiled slices of a traced or video window, each at the middle of its third
 REF_SAMPLE = 16  # frames of a video cycle the reference reads, drawn from the seed
 REF_WORKERS = 4
 STAGES = ("crop_to_map", "find_marker_lines", "ocr")  # the DebugBox stages an update keeps
@@ -187,7 +191,8 @@ class Run:
     t0: float
     t1: float
     paused_s: float  # the program held in the window while the profiler started and stopped
-    updates: list  # live: (t, cycle idx, latency ms, seconds of each of STAGES) delivered in the window
+    updates: list  # live, delivered in the window: (t, cycle idx, take -> update ms, seconds of each of STAGES,
+    #                screen -> update ms, screen -> take ms), the last two None for a frame with no screen stamp
     spans: list  # (kind, start, end) of the benchmark's spans
     counters: dict  # deltas over the window: backend or batch stats, launches, frames
     slices: list  # profiled slices (traced runs)
@@ -265,9 +270,11 @@ def live(ctx: dict) -> dict:
         i = 0
 
         def grab(self):
+            t = clock()  # the screen is read
             if self.closed:
                 return None
             f = Frame(frames[self.i % n], dpi)
+            f.grabbed = t
             self.i += 1
             return f
 
@@ -306,7 +313,9 @@ def live(ctx: dict) -> dict:
         now = clock()
         if tr.get("fps_cap") and len(served) == ctx["warm"] - CAP_LEAD:
             loop._interval = 1.0 / float(tr["fps_cap"])  # the warm-up ran uncapped
-        idx, t_take = state_box["state"].current.take
+        frame = state_box["state"].current
+        idx, t_take = frame.take
+        grabbed = getattr(frame, "grabbed", None)  # None: a frame the benchmark's source did not read
         ans = answer_of(results.markers, results.meters_to_px_ratio, results.minimap_bounds, False) \
             if results is not None else answer_of((), None, None, True)
         ans = fault(ans)
@@ -315,7 +324,9 @@ def live(ctx: dict) -> dict:
         answered.add(t_take)
         served.append((idx, distinct.setdefault(ans, ans)))
         st = debug.timeshares.stages
-        ctx["updates"].append((now, idx, (now - t_take) * 1e3, tuple(st.get(k, 0.0) for k in STAGES)))
+        ctx["updates"].append((now, idx, (now - t_take) * 1e3, tuple(st.get(k, 0.0) for k in STAGES),
+                               None if grabbed is None else (now - grabbed) * 1e3,
+                               None if grabbed is None else (t_take - grabbed) * 1e3))
         if len(served) == ctx["warm"] and not started.is_set():
             window.update(t0=now, stats=dict(state_box["state"].delegate.backend.stats), launches=dict(K.LAUNCHES),
                           taken=len(takes))
@@ -445,8 +456,9 @@ def video(ctx: dict) -> dict:
             if clock() - ctx["t_setup0"] > SETUP_TIMEOUT_S:
                 raise RuntimeError(f"{collected[0]} frames in {SETUP_TIMEOUT_S} s: the window never opened")
         t0 = window["t0"]
-        slices = _window(t0, ctx["seconds"], ctx["trace"], lambda: sum(K.LAUNCHES.values()), hold.pause,
-                         hold.resume)
+        # The video's end-to-end metric is the card's time a frame, so every run on a card takes the slices.
+        slices = _window(t0, ctx["seconds"], ctx["trace"] or ctx["device"] != "cpu", lambda: sum(K.LAUNCHES.values()),
+                         hold.pause, hold.resume)
         t1 = t0 + ctx["seconds"]
         stats1 = dict(bp.stats)
         closed[0] = True
@@ -479,12 +491,22 @@ def _end_to_end(ctx: dict, win: dict, setup_s: float) -> dict:
     seconds = win["t1"] - win["t0"]
     out = {"setup_s": setup_s}
     if ctx["traffic"]["feed"] == "live":
-        lat = [ms for t, _, ms, _ in ctx["updates"] if win["t0"] < t <= win["t1"]]
+        ups = [u for u in ctx["updates"] if win["t0"] < u[0] <= win["t1"]]
+        lat = [u[2] for u in ups]
         out["live_fps"] = len(lat) / seconds
         out["update_p50_ms"] = Y.quantile(lat, 0.5)
         out["update_p95_ms"] = Y.quantile(lat, 0.95)
+        waits = [u[4] for u in ups if u[4] is not None]
+        if waits:
+            out["screen_to_update_ms"] = Y.quantile(waits, 0.5)
     else:
         out["video_fps"] = ctx["counters"]["frames_out"] / seconds
+        # Each slice holds whole batches (the feed is quiet at both ends): one hostpack launch a batch.
+        slices, b = win["slices"], ctx["counters"]["batch"]
+        frames = b * sum(1 for s in slices for name, _, _, kind in s["rows"]
+                         if kind == "kernel" and name == "hostpack_kernel")
+        if frames:  # every kernel's and copy's time, each counted whole where two overlap
+            out["video_device_us_per_frame"] = 1e6 * sum(z - a for s in slices for _, a, z, _ in s["rows"]) / frames
     return out
 
 
@@ -580,7 +602,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
     else:
         values = _end_to_end(ctx, win, setup_s)
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
-                   for m in bench["end_to_end"] if in_cell(m, workload)}
+                   for m in bench["end_to_end"] if in_cell(m, workload) and m["name"] in values}
     device_info = {"platform": "gpu" if cuda else "cpu", "count": 1, "memory_peak_bytes": ctx.get("memory_peak", 0)}
     if cuda:
         device_info["kind"] = torch.cuda.get_device_name(dev)
@@ -602,6 +624,8 @@ def run(workload: str, seed: int, seconds: float, trace: bool, device: str = "cu
         if win["t0"] < t <= win["t1"] and k < len(per_s):
             per_s[k] += 1
     out["_diag"] = {"per_second": per_s, "gen_s": gen_s, "cores": os.cpu_count()}
+    if tr["feed"] == "video" and not trace:  # the rate, per-layer as `frames_per_s.video` in the traced run
+        out["_diag"]["video_fps"] = values["video_fps"]
     if tr["feed"] == "live" and rec.updates:  # the candidates' spreads are read from the untraced runs
         out["_diag"].update(p95_ms=Y.quantile([u[2] for u in rec.updates], 0.95),
                             updates_per_s=len(rec.updates) / (win["t1"] - win["t0"] - rec.paused_s))

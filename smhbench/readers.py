@@ -23,6 +23,12 @@ def latency_ms(run, q: float):
     return Y.quantile([u[2] for u in run.updates], q) if run.updates else None
 
 
+def screen_ms(run, field: int):
+    """Screen -> update (field 4) or screen -> take (field 5) of every
+    update of the window whose frame the benchmark's source stamped (ms)."""
+    return [u[field] for u in run.updates if u[field] is not None]
+
+
 def span_ms(run, kind: str):
     """Mean length of the benchmark's spans of one kind begun in the window (ms)."""
     spans = run.spans_in(kind)

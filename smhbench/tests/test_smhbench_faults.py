@@ -88,3 +88,5 @@ def test_a_traced_run_holds_the_program_quiet_around_each_slice(workload, monkey
     assert len(seen) == harness.SLICES
     if not video:
         assert out["metrics"]["update_p95_ms.live"]["value"] > 0
+    else:
+        assert out["metrics"]["frames_per_s.video"]["value"] > 0

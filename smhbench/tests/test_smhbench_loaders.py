@@ -103,4 +103,5 @@ def test_benchmark_json_keeps_to_its_format():
     for w in BENCH["workloads"]:
         assert sum(harness.in_cell(m, w["name"]) for m in BENCH["end_to_end"]) >= 2
         assert any(harness.in_cell(m, w["name"]) for m in BENCH["per_layer"])
-    assert layers <= {"Loop", "Async fetch", "Host readers", "Upload", "Fused pass", "Kernels", "Device", "Batch"}
+    assert layers <= {"Capture", "Loop", "Async fetch", "Host readers", "Upload", "Fused pass", "Kernels", "Device",
+                      "Batch", "Set-up"}

@@ -34,22 +34,61 @@ def _run(**kw):
 
 
 def test_end_to_end_rates_and_tails_take_every_update_of_the_window():
-    ups = [(10.0 + 0.01 * i, 0, float(i % 50), {}) for i in range(1, 301)]  # 300 updates, t in (10, 13]
+    # 300 updates, t in (10, 13]; screen -> update is take -> update + 60 ms
+    ups = [(10.0 + 0.01 * i, 0, float(i % 50), {}, 60.0 + i % 50, 60.0) for i in range(1, 301)]
     ctx = {"traffic": {"feed": "live"}, "updates": ups}
     out = harness._end_to_end(ctx, {"t0": 10.0, "t1": 12.0}, 5.0)
     lat = [u[2] for u in ups if 10.0 < u[0] <= 12.0]
     assert len(lat) == 200
     assert out["update_p50_ms"] == Y.quantile(lat, 0.5) and out["update_p95_ms"] == Y.quantile(lat, 0.95)
     assert out["live_fps"] == pytest.approx(100.0)
-    assert set(out) == {"live_fps", "update_p50_ms", "update_p95_ms", "setup_s"}
+    assert out["screen_to_update_ms"] == 60.0 + Y.quantile(lat, 0.5)
+    assert set(out) == {"live_fps", "update_p50_ms", "update_p95_ms", "screen_to_update_ms", "setup_s"}
     run = _run(updates=[u for u in ups if 10.0 < u[0] <= 12.0])
     assert readers.latency_ms(run, 0.95) == Y.quantile(lat, 0.95) and readers.latency_ms(_run(), 0.95) is None
     assert harness.reader("update_p95_ms.live")(run) == Y.quantile(lat, 0.95)
     assert harness.reader("update_p50_ms.live")(run) == Y.quantile(lat, 0.5)
     assert out["setup_s"] == 5.0
-    vid = harness._end_to_end({"traffic": {"feed": "video"}, "counters": {"frames_out": 480}},
-                              {"t0": 0.0, "t1": 4.0}, 1.0)
-    assert vid["video_fps"] == 120.0
+    # the card's time a frame: every row of the slices, overlaps counted whole, over the frames of their batches
+    one = [("Memcpy HtoD", 0.100, 0.102, "copy"), ("fused_mask_kernel", 0.101, 0.104, "kernel"),
+           ("hostpack_kernel", 0.104, 0.105, "kernel")]
+    two = [("hostpack_kernel", 2.500, 2.501, "kernel"), ("hostpack_kernel", 2.600, 2.601, "kernel")]
+    slices = [{"lo": 0.0, "hi": 1.0, "rows": one}, {"lo": 2.0, "hi": 3.0, "rows": two}]
+    counters = {"frames_out": 480, "batch": 8}
+    vid = harness._end_to_end({"traffic": {"feed": "video"}, "counters": counters},
+                              {"t0": 0.0, "t1": 4.0, "slices": slices}, 1.0)
+    assert vid["video_fps"] == 120.0 and vid["video_device_us_per_frame"] == pytest.approx(1e6 * 0.008 / 24)
+    assert "video_device_us_per_frame" not in harness._end_to_end(
+        {"traffic": {"feed": "video"}, "counters": counters}, {"t0": 0.0, "t1": 4.0, "slices": []}, 1.0)
+    # the traced run's rate leaves out the seconds the profiler held the program
+    assert harness.reader("frames_per_s.video")(_run(t0=0.0, t1=5.0, paused_s=1.0, counters={"frames_out": 480})) \
+        == 120.0
+    assert harness.reader("frames_per_s.video")(_run(counters={"frames_out": 0})) is None
+
+
+def test_screen_to_update_takes_every_stamped_update_of_the_window_and_nothing_else():
+    """The median and 95th percentile of screen -> update, and the mean
+    screen -> take, count each update of the window whose frame carries the
+    source's stamp: none before the window or after it, and no unstamped
+    frame, whose update still counts in the rate and in take -> update."""
+    stamped = [(10.0 + 0.01 * i, i % 12, 5.0, (0.0, 0.0, 0.0), 70.0 + i, 65.0 + i % 3) for i in range(1, 101)]
+    outside = [(9.5, 0, 5.0, (0.0, 0.0, 0.0), 1e6, 1e6), (12.5, 0, 5.0, (0.0, 0.0, 0.0), 1e6, 1e6)]
+    unstamped = [(11.5, 0, 5.0, (0.0, 0.0, 0.0), None, None)]
+    ups = stamped + outside + unstamped
+    out = harness._end_to_end({"traffic": {"feed": "live"}, "updates": ups}, {"t0": 10.0, "t1": 12.0}, 1.0)
+    waits = [70.0 + i for i in range(1, 101)]
+    assert out["screen_to_update_ms"] == Y.quantile(waits, 0.5) == 120.0
+    assert out["live_fps"] == pytest.approx(101 / 2.0)
+    run = _run(updates=[u for u in ups if 10.0 < u[0] <= 12.0])
+    assert len(run.updates) == 101
+    assert harness.reader("screen_to_update_p95_ms.live")(run) == Y.quantile(waits, 0.95) == 165.0
+    ages = [65.0 + i % 3 for i in range(1, 101)]
+    assert harness.reader("screen_age_at_take_ms.live")(run) == pytest.approx(sum(ages) / len(ages))
+    none = _run(updates=unstamped)
+    assert harness.reader("screen_to_update_p95_ms.live")(none) is None
+    assert harness.reader("screen_age_at_take_ms.live")(none) is None
+    assert "screen_to_update_ms" not in harness._end_to_end({"traffic": {"feed": "live"}, "updates": unstamped},
+                                                            {"t0": 10.0, "t1": 12.0}, 1.0)
 
 
 def test_stage_and_span_means():
